@@ -1,0 +1,91 @@
+"""Pipeline configuration + per-stage implementation selectors.
+
+The same fields and defaults as ``repro.core.pipeline.config``:
+
+* ``use_kernels`` routes quantization + cluster accumulation through
+  ``ops.cluster_accum`` (the CUDA kernel on the card), else the tensor
+  scatter :func:`cell_histogram`;
+* ``metrics_impl``: ``"kernel"`` routes the six metrics through
+  ``ops.patch_metrics`` (the CUDA kernel on the card); ``"event"`` through
+  :func:`cluster_metrics_events`; ``"frame"`` (the frame oracle) is not
+  ported yet;
+* ``scan_chunk`` is the reference's scheduling knob for its atlas event
+  core, which this port does not have yet; results never depend on it;
+* ``numerics="fixed"`` (the integer datapath) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.core import metrics as M
+from repro_torch.core.events import DEFAULT_ROI, BatcherConfig, EventBatch
+from repro_torch.core.grid_clustering import Clusters, GridConfig, cell_histogram
+from repro_torch.core.tracking import TrackerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    grid: GridConfig = GridConfig()
+    batcher: BatcherConfig = BatcherConfig()
+    tracker: TrackerConfig = TrackerConfig()
+    roi: tuple[int, int, int, int] = DEFAULT_ROI
+    hot_pixel_max: int = 12
+    merge_neighbors: bool = False
+    use_kernels: bool = False  # route quantize+accumulate through the kernel
+    metrics_impl: str = "event"  # "event" | "kernel" ("frame" not ported yet)
+    scan_chunk: int = 8  # scheduling only; unused by the straight core
+    numerics: str = "float"  # "float" ("fixed" not ported yet)
+
+
+def config_from_dict(d: dict[str, Any]) -> PipelineConfig:
+    """A ``PipelineConfig`` from ``dataclasses.asdict`` of this one or of
+    the reference's, with the nested configs rebuilt."""
+    d = dict(d)
+    d["grid"] = GridConfig(**d["grid"])
+    d["batcher"] = BatcherConfig(**d["batcher"])
+    d["tracker"] = TrackerConfig(**d["tracker"])
+    d["roi"] = tuple(d["roi"])
+    return PipelineConfig(**d)
+
+
+def check_supported(config: PipelineConfig) -> None:
+    """Raise for the routes this slice of the port does not have yet."""
+    if config.numerics != "float":
+        if config.numerics == "fixed":
+            raise NotImplementedError(
+                "numerics='fixed' is not ported yet (ROADMAP: fixed-point datapath)"
+            )
+        raise ValueError(f"unknown numerics: {config.numerics!r}")
+
+
+def _histogram_fn(config: PipelineConfig) -> Callable[[EventBatch], tuple]:
+    if config.use_kernels:
+        from repro_torch.kernels import ops as kops
+
+        g = config.grid
+        return lambda batch: kops.cluster_accum(
+            batch.x, batch.y, batch.t, batch.valid,
+            cell_size=g.cell_size, grid_w=g.grid_w, grid_h=g.grid_h,
+            width=g.width, height=g.height,
+        )
+    return lambda batch: cell_histogram(batch, config.grid)
+
+
+def _metrics_fn(
+    config: PipelineConfig,
+) -> Callable[[EventBatch, Clusters], dict[str, Any]]:
+    """Metrics stage over ``(W, E)`` windows for the configured route."""
+    impl = config.metrics_impl
+    w, h = config.grid.width, config.grid.height
+    if impl == "event":
+        return lambda batch, clusters: M.cluster_metrics_events(batch, clusters, w, h)
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+
+        return lambda batch, clusters: kops.patch_metrics(batch, clusters, width=w, height=h)
+    if impl == "frame":
+        raise NotImplementedError(
+            "metrics_impl='frame' is not ported yet (ROADMAP: the frame oracle)"
+        )
+    raise ValueError(f"unknown metrics_impl: {impl!r}")

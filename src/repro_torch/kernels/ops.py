@@ -1,0 +1,102 @@
+"""Public wrappers around the kernels, with the JAX wrappers' contracts.
+
+A wrapper given CPU tensors runs its kernel's plain PyTorch version
+(:mod:`repro_torch.kernels.ref`); given CUDA tensors it launches the
+hand-written kernel or raises. There is no fallback from one to the
+other. ``LAUNCHES`` counts kernel launches per wrapper, so a run can show
+that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import metrics as M
+from repro_torch.kernels import ref
+
+LAUNCHES = {"cluster_accum": 0, "patch_metrics": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel route for device {t.device}")
+    return t.device.type
+
+
+def cluster_accum(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    t: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    cell_size: int,
+    grid_w: int,
+    grid_h: int,
+    width: int | None = None,
+    height: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused quantize + per-cell count/centroid sums over ``(..., E)``
+    events (integer x, y, t; bool valid). Returns count int32 and sum_x,
+    sum_y, sum_t float32, each ``(..., grid_w * grid_h)``; ``width`` and
+    ``height`` bound the sensor (default: the grid's extent)."""
+    width = grid_w * cell_size if width is None else width
+    height = grid_h * cell_size if height is None else height
+    if t.is_floating_point():
+        raise TypeError("cluster_accum takes integer window-relative t")
+    kw = dict(cell_size=cell_size, grid_w=grid_w, grid_h=grid_h, width=width, height=height)
+    if _route(x) == "cpu":
+        return ref.cluster_accum_ref(x, y, t, valid, **kw)
+    from repro_torch.kernels import cluster_accum as _ca
+
+    e = x.shape[-1]
+    lead = x.shape[:-1]
+    flat = lambda a, dt: a.to(dt).reshape(-1, e).contiguous()
+    out = _ca.cluster_accum(
+        flat(x, torch.int32), flat(y, torch.int32), flat(t, torch.int32),
+        flat(valid, torch.bool), **kw,
+    )
+    LAUNCHES["cluster_accum"] += 1
+    return tuple(a.reshape(*lead, grid_w * grid_h) for a in out)
+
+
+def patch_metrics(
+    batch,
+    clusters,
+    *,
+    width: int = 640,
+    height: int = 480,
+    window: int | None = None,
+    bins: int | None = None,
+) -> dict[str, torch.Tensor]:
+    """Fused event -> patch scatter + six cluster metrics over ``(W, E)``
+    windows and ``(W, K)`` clusters.
+
+    The event-space preprocessing (coincidence counts, leaders, the frame
+    normalizer, patch origins) runs here as tensor ops; the per-slot
+    patch, histogram, Sobel and metric math run in the kernel. Returns
+    the metric dict keyed by ``METRIC_NAMES``, each ``(W, K)``.
+    """
+    window = M.WINDOW if window is None else window
+    bins = M.HIST_BINS if bins is None else bins
+    c, leader, w, norm = M.event_normalizer(batch, width, height)
+    x0, y0 = M.window_origin(clusters.centroid_x, clusters.centroid_y, width, height, window)
+    args = (batch.x, batch.y, w, c, leader, x0, y0, clusters.count, clusters.valid, norm)
+    if _route(batch.x) == "cpu":
+        out = ref.patch_metrics_ref(*args, window=window, bins=bins)
+    else:
+        from repro_torch.kernels import patch_metrics as _pm
+
+        if (window, bins) != (_pm.WINDOW, _pm.BINS):
+            raise ValueError(
+                f"the CUDA patch_metrics kernel is built for window={_pm.WINDOW}, "
+                f"bins={_pm.BINS}; got window={window}, bins={bins}"
+            )
+        dtypes = (torch.int32, torch.int32, torch.bool, torch.int32, torch.bool,
+                  torch.int32, torch.int32, torch.int32, torch.bool, torch.float32)
+        out = _pm.patch_metrics(*(a.to(d).contiguous() for a, d in zip(args, dtypes)))
+        LAUNCHES["patch_metrics"] += 1
+    return {name: out[..., i] for i, name in enumerate(M.METRIC_NAMES)}

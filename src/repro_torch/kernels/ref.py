@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each function has its kernel's contract and repeats its arithmetic step
+by step. The wrappers in :mod:`repro_torch.kernels.ops` take these for
+tensors on the CPU; the tests hold them against the JAX package, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import metrics as M
+
+
+def cluster_accum_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    t: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    cell_size: int,
+    grid_w: int,
+    grid_h: int,
+    width: int | None = None,
+    height: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize + per-cell count, sum_x, sum_y, sum_t over ``(..., E)``
+    events. Out-of-sensor events are masked, never clipped into a cell.
+    Returns count int32 and three float32 tensors, each ``(..., n_cells)``."""
+    width = grid_w * cell_size if width is None else width
+    height = grid_h * cell_size if height is None else height
+    n_cells = grid_w * grid_h
+    e = x.shape[-1]
+    lead = x.shape[:-1]
+    xi = x.to(torch.int32).reshape(-1, e)
+    yi = y.to(torch.int32).reshape(-1, e)
+    cx = torch.div(xi, cell_size, rounding_mode="floor")
+    cy = torch.div(yi, cell_size, rounding_mode="floor")
+    flat = torch.clamp(cy * grid_w + cx, 0, n_cells - 1).to(torch.int64)
+    inb = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height)
+    v = valid.reshape(-1, e) & inb
+    vf = v.to(torch.float32)
+
+    def acc(vals: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((xi.shape[0], n_cells), dtype=vals.dtype, device=xi.device)
+        return out.scatter_add_(-1, flat, vals).reshape(*lead, n_cells)
+
+    count = acc(v.to(torch.int32))
+    sum_x = acc(vf * xi.to(torch.float32))
+    sum_y = acc(vf * yi.to(torch.float32))
+    sum_t = acc(vf * t.reshape(-1, e).to(torch.float32))
+    return count, sum_x, sum_y, sum_t
+
+
+def patch_metrics_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    c: torch.Tensor,
+    leader: torch.Tensor,
+    x0: torch.Tensor,
+    y0: torch.Tensor,
+    count: torch.Tensor,
+    cvalid: torch.Tensor,
+    norm: torch.Tensor,
+    *,
+    window: int = M.WINDOW,
+    bins: int = M.HIST_BINS,
+) -> torch.Tensor:
+    """Six metrics per cluster slot from one event window each.
+
+    Event tensors are ``(B, E)`` (x, y int; weight, leader bool; c the
+    coincidence counts), slot tensors ``(B, K)`` (patch origins, event
+    count, validity), ``norm`` ``(B,)``. Per slot: the 48x48 count patch
+    scattered from in-patch weighted events, the leader histogram with
+    the unoccupied pixels in bin 0, then the shared metric core with
+    dense moments. Returns ``(B, K, 6)`` float32 in ``METRIC_NAMES`` order.
+    """
+
+    def block(x, y, w, c, leader, x0, y0, count, cvalid, norm):
+        patches = M._count_patches(x, y, w, x0, y0, window)
+        hist, _ = M._leader_histogram(x, y, w, c, leader, norm, x0, y0, window, bins)
+        return M._exact_cluster_metrics(patches, hist, norm[:, None], count, cvalid)
+
+    mets = M._blocked(block, x, y, w, c, leader, x0, y0, count, cvalid, norm)
+    return torch.stack([mets[name] for name in M.METRIC_NAMES], dim=-1)

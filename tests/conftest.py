@@ -26,6 +26,12 @@ def run_in_subprocess(code: str, device_count: int = 1, timeout: int = 600) -> s
     return proc.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skips without one"
+    )
+
+
 @pytest.fixture(scope="session")
 def subproc():
     return run_in_subprocess

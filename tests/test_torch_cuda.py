@@ -1,0 +1,103 @@
+"""The CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device. The
+file imports neither JAX nor the JAX package, so it runs on a machine
+with a card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Integers compare exactly; for patch_metrics event_count and edge_density
+exactly, the entropies and contrast to rtol = atol = 1e-5
+(order-dependent float32 reductions and log2). The adversarial windows
+come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
+are shared with ``test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import events as TE
+from repro_torch.core import metrics as TM
+from repro_torch.core.grid_clustering import Clusters, GridConfig
+from repro_torch.data.adversarial import adversarial_windows, edge_slot_clusters
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+
+E = 256
+RTOL = ATOL = 1e-5
+EXACT = ("event_count", "edge_density")
+
+
+def _windows():
+    """(5, E) adversarial windows (see :mod:`repro_torch.data.adversarial`)."""
+    return adversarial_windows(E)
+
+
+def _tbatch(x, y, t, v):
+    return TE.EventBatch(
+        *(torch.as_tensor(a, dtype=torch.int32) for a in (x, y, t, np.zeros_like(x))),
+        torch.as_tensor(v),
+    )
+
+
+def _slot_clusters(x, y, t, v):
+    """Clusters at min_events=1 from each window, with four slots forced to
+    the sensor's corners (valid, no events nearby) and two invalid slots."""
+    return edge_slot_clusters(_tbatch(x, y, t, v))
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_size", [16, 12])
+def test_cluster_accum_kernel_matches_plain(cuda_dev, cell_size):
+    x, y, t, v = (torch.as_tensor(a, device=cuda_dev) for a in _windows())
+    g = GridConfig(cell_size=cell_size)
+    kw = dict(cell_size=cell_size, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
+    before = ops.LAUNCHES["cluster_accum"]
+    got = ops.cluster_accum(x, y, t, v, **kw)
+    assert ops.LAUNCHES["cluster_accum"] == before + 1
+    for a, b in zip(got, ref.cluster_accum_ref(x, y, t, v, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_patch_metrics_kernel_matches_plain(cuda_dev):
+    x, y, t, v = _windows()
+    b = TE.EventBatch(*(a.to(cuda_dev) for a in _tbatch(x, y, t, v)))
+    cl = Clusters(*(a.to(cuda_dev) for a in _slot_clusters(x, y, t, v)))
+    got = ops.patch_metrics(b, cl)
+    c, leader, w, norm = TM.event_normalizer(b, 640, 480)
+    x0, y0 = TM.window_origin(cl.centroid_x, cl.centroid_y, 640, 480)
+    exp = ref.patch_metrics_ref(b.x, b.y, w, c, leader, x0, y0, cl.count, cl.valid, norm)
+    for i, m in enumerate(TM.METRIC_NAMES):
+        if m in EXACT:
+            assert torch.equal(got[m], exp[..., i]), m
+        else:
+            torch.testing.assert_close(got[m], exp[..., i], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_main_path_on_card_equals_cpu(cuda_dev):
+    from repro_torch.core.pipeline import PipelineConfig, evaluate_detection, run_recording_scan
+    from repro_torch.data.synthetic import make_recording
+
+    rec = make_recording(seed=7, duration_s=0.6)
+    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    ops.reset_launches()
+    gpu = run_recording_scan(rec, cfg, device=cuda_dev)
+    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    cpu = run_recording_scan(rec, cfg, device="cpu")
+    for f in Clusters._fields:
+        assert torch.equal(getattr(gpu.clusters, f).cpu(), getattr(cpu.clusters, f)), f
+    for m in EXACT:
+        assert torch.equal(gpu.metrics[m].cpu(), cpu.metrics[m]), m
+    for f in ("hits", "misses", "age", "active"):
+        assert torch.equal(getattr(gpu.tracks, f).cpu(), getattr(cpu.tracks, f)), f
+    assert evaluate_detection(rec, cfg, device=cuda_dev) == evaluate_detection(rec, cfg, device="cpu")

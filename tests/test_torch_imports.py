@@ -1,0 +1,95 @@
+"""The port stands alone: importing it loads neither ``jax`` nor the JAX
+package, no source of the port or of ``chip_smoke.py`` imports them, and
+its entry points refuse to run silently on the CPU when a card was asked
+for (the default) and none is present."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+STANDALONE = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"]
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(bad), bad[:5])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+
+
+@pytest.mark.parametrize("path", STANDALONE, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import_in_source(path):
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    assert not pat.findall(path.read_text()), path
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal cannot be shown here")
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_a_card():
+    _no_card()
+    from repro_torch import resolve_device
+    from repro_torch.core.events import pad_windows
+    from repro_torch.core.pipeline import PipelineConfig, evaluate_detection, run_recording_scan
+    from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
+    from repro_torch.data.synthetic import make_recording
+
+    rec = make_recording(seed=1, duration_s=0.05)
+    for call in (
+        lambda: resolve_device(),
+        lambda: pad_windows(rec.x, rec.y, rec.t, rec.p),
+        lambda: run_recording_scan(rec),
+        lambda: run_recording_scan(rec, PipelineConfig(use_kernels=True, metrics_impl="kernel")),
+        lambda: evaluate_detection(rec),
+        lambda: init_tracks(),
+        lambda: tracks_from_numpy(tracks_to_numpy(init_tracks(device="cpu"))),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_card():
+    _no_card()
+    out = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], capture_output=True, text=True,
+        cwd=REPO, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_example_quickstart_runs_on_the_cpu_when_asked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_quickstart.py"), "--device", "cpu",
+         "--duration", "0.3"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Detection accuracy" in out.stdout
+    assert np.isfinite(float(re.search(r"accuracy vs ground truth: ([\d.]+)%", out.stdout)[1]))
