@@ -5,19 +5,26 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+Two paths are driven: the float main path (``use_kernels=True,
+metrics_impl="kernel"``: the ``cluster_accum`` and ``patch_metrics``
+kernels) and the fixed-point path (``numerics="fixed",
+metrics_impl="megakernel"``: the ``window_pipeline`` kernel).
+
 Phases (any failure exits non-zero; no error is caught):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on adversarial windows, and time kernel, plain
-   version and a one-call library yardstick;
-3. the main path on the quickstart recording through the entry points
-   (``run_recording_scan`` + ``evaluate_detection``, kernel config), on
-   the card and on the CPU: integer outputs equal, the reference counts;
-4. the main path at real scale (60 s, 20 kHz noise, 5,154 windows):
-   integer outputs equal to the CPU run; steady-state times of the entry
-   points' own functions, and the window core's stages from a profile;
-5. the kernels' launch counters over phases 3 and 4 are non-zero.
+   version and, where one exists, a one-call library yardstick;
+3. each path on the quickstart recording through the entry points
+   (``run_recording_scan`` + ``evaluate_detection``), on the card and on
+   the CPU: integer outputs equal, the reference counts, and each path's
+   launch counters read just after it ran;
+4. each path at real scale (60 s, 20 kHz noise, 5,154 windows): the float
+   path's integer outputs equal to the CPU run, the fixed path's equal to
+   its staged route on the card; steady-state times of the entry points'
+   own functions, and the window core's stages from a profile;
+5. every kernel of each path was launched on it.
 
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -25,6 +32,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,13 +42,25 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# 32-bit rate outside the tensor cores, which both kernels' arithmetic uses.
+# float32 rate outside the tensor cores (an FMA counted as two), which the
+# float kernels' arithmetic uses. The data sheet gives no 32-bit integer
+# rate: an SM has 64 INT32 lanes against 128 FP32 lanes, so a quarter of
+# the float32 figure, one operation a lane a clock. The window_pipeline
+# kernel's work is integer.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_INT32_S = PEAK_OPS_S / 4
 RTOL = ATOL = 1e-5  # order-dependent float32 reductions and log2 (see tests)
 TRACK_RTOL, TRACK_ATOL = 1e-6, 1e-4
 QUICKSTART = dict(seed=7, duration_s=2.0, n_rsos=2)
 QUICKSTART_EXPECT = dict(windows=100, valid=203, confirmed=2, tp=199, fp=4, fn=5, tn=562)
+FLOAT_KERNELS = ("cluster_accum", "patch_metrics")
+FIXED_KERNELS = ("window_pipeline",)
+REPLACES = {
+    "cluster_accum": "src/repro/kernels/cluster_accum.py:69",
+    "patch_metrics": "src/repro/kernels/patch_metrics.py:80",
+    "window_pipeline": "src/repro/kernels/window_pipeline.py:230",
+}
 SCALE = dict(seed=11, duration_s=60, n_rsos=4, noise_rate_hz=20_000)
 
 
@@ -189,17 +209,134 @@ def check_kernels(dev, main_batch, main_clusters) -> dict:
         bytes=pm_bytes, ops=pm_ops, valid_slots=n_valid, busy_windows=n_busy,
     )
     for name, r in results.items():
-        t_bytes = r["bytes"] / PEAK_BYTES_S * 1e3
-        t_ops = r["ops"] / PEAK_OPS_S * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"  {name} at ({n_win}, {e}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-            f"({r['bytes']} B, {r['ops']} ops"
-            + (f", {r['valid_slots']} valid slots in {r['busy_windows']} windows)"
-               if "valid_slots" in r else ")"))
+        bound(r)
+        log_kernel(name, r, (n_win, e))
     return results
+
+
+def compare_fixed(got, want, what: str) -> float:
+    """``(FixedClusters, metrics, surfaces)`` of the kernel and of the plain
+    version: every field, the six metrics to the bit, the normalizer, and
+    the surfaces of valid slots (the kernel writes zeros for the rest).
+    Returns the largest absolute difference over all of them, the metrics
+    compared as floats after their bits."""
+    import torch
+
+    (fc, mets, surf), (rfc, rmets, rsurf) = got, want
+    err = 0.0
+    for f in fc._fields:
+        err = max(err, equal(getattr(fc, f), getattr(rfc, f), f"{what}: {f}"))
+    for m in mets:
+        equal(mets[m].view(torch.int32), rmets[m].view(torch.int32), f"{what}: {m}")
+        err = max(err, equal(mets[m], rmets[m], f"{what}: {m}"))
+    err = max(err, equal(surf["norm_i"], rsurf["norm_i"], f"{what}: norm_i"))
+    for k in surf:
+        if k != "norm_i":
+            err = max(err, equal(surf[k][fc.valid], rsurf[k][fc.valid], f"{what}: {k} of valid slots"))
+    return err
+
+
+def check_window_pipeline(dev, raw_block, cfg) -> dict:
+    """Hold the fixed-point megakernel against its plain version (the
+    staged path) to the bit, on the main path's raw block and on
+    adversarial windows; time it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import fixed_point as FX
+    from repro_torch.core.events import roi_filter
+    from repro_torch.core.grid_clustering import GridConfig
+    from repro_torch.core.pipeline.window_core import _condition
+    from repro_torch.data.adversarial import (
+        adversarial_batch, clustered_window, named_windows, stacked_batch,
+    )
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import window_pipeline as _wp
+
+    c12 = dataclasses.replace(cfg, grid=GridConfig(cell_size=12))
+    named = stacked_batch(list(named_windows().values()), dev)
+    cases = (
+        ("main path", raw_block, cfg),
+        ("main path, cell 12", raw_block, c12),
+        ("six named windows", named, cfg),
+        ("six named windows, cell 12", named, c12),
+        ("adversarial", adversarial_batch(dev), cfg),
+        ("adversarial, cell 12", adversarial_batch(dev), c12),
+        ("capacity 1024", stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(4)], dev), cfg),
+    )
+    err = 0.0
+    for name, b, c in cases:
+        err = max(err, compare_fixed(
+            ops.window_pipeline(b, c), ref.window_pipeline_ref(b, c), f"window_pipeline ({name})"))
+    log("  window_pipeline: fields, metrics and valid-slot surfaces identical to the plain version "
+        "(main path, six named windows, adversarial, cell 16 and 12, capacity 1024)")
+
+    g = cfg.grid
+    n_win, e = raw_block.x.shape
+    k = g.max_clusters
+    xi, yi, ti, vi = (a.contiguous() for a in (raw_block.x, raw_block.y, raw_block.t, raw_block.valid))
+    kw = dict(roi=tuple(cfg.roi), hot_pixel_max=cfg.hot_pixel_max, cell_size=g.cell_size,
+              grid_w=g.grid_w, grid_h=g.grid_h, min_events=g.min_events, k=k,
+              width=g.width, height=g.height)
+    wp_ms = cuda_ms(lambda: _wp.window_pipeline(xi, yi, ti, vi, **kw))
+    # The plain version of what the kernel computes: the integer stages
+    # of the staged path (the float epilogue runs after either).
+    wp_plain = cuda_ms(lambda: FX.fixed_stage_surfaces(cfg, raw_block), iters=3, warmup=1)
+    # The work this block's data needs, from the plain version's masks
+    # and surfaces, counted by what the function needs and not by the
+    # kernel's own loops (its pairwise and K arg-max passes do far more).
+    cond = _condition(cfg, raw_block)
+    inb = (cond.x >= 0) & (cond.x < g.width) & (cond.y >= 0) & (cond.y < g.height)
+    n_roi = roi_filter(raw_block, cfg.roi).valid.sum(-1)  # (W,)
+    n_w = (cond.valid & inb).sum(-1)  # (W,) kept events
+    fc, _, surf = ref.window_pipeline_ref(raw_block, cfg)
+    n_valid = int(fc.valid.sum())
+    n_in_patch = int(surf["s1"][fc.valid].sum())  # kept events inside valid slots' patches
+    # Bytes: x, y and valid of every event and t of each kept event read
+    # once; the nine fields of every slot, norm of every window and the 37
+    # surface ints of each valid slot written once.
+    wp_bytes = (n_win * e * 9 + int(n_w.sum()) * 4
+                + n_win * (9 * k + 1) * 4 + n_valid * (_wp.BINS + 5) * 4)
+    # Integer operations: 6 per event for the ROI and sensor masks; per
+    # window a sort of its ROI-valid events by pixel (2 log2 n per event)
+    # and 6 per event for the hot-pixel counts, coincidence counts and
+    # leaders from the sorted runs; 7 per kept event for the cell stats;
+    # one selection pass over the cells (2 per cell) and the ordering of
+    # the K slots (K log2 K); about 40 per valid slot for its fields; per
+    # valid slot 4 per kept event of its window (the patch test) and 4 per
+    # event inside the patch (scatter, histogram bin, sums); 18 per patch
+    # pixel (separable Sobel 6, g2 2, max 1, edge test 3, isqrt 4, two
+    # sums 2).
+    log2n = torch.log2(n_roi.clamp_min(2).double()).ceil()
+    valid_per_win = fc.valid.sum(-1)
+    wp_ops = (6 * n_win * e + int((n_roi * (2 * log2n + 6)).sum()) + 7 * int(n_w.sum())
+              + n_win * (2 * g.n_cells + k * math.ceil(math.log2(k)))
+              + 40 * n_valid + 4 * int((valid_per_win * n_w).sum()) + 4 * n_in_patch
+              + n_valid * 18 * _wp.WINDOW * _wp.WINDOW)
+    r = dict(ms=wp_ms, plain_ms=wp_plain, library_ms=None, max_abs_err=err,
+             bytes=wp_bytes, ops=wp_ops, ops_peak=PEAK_INT32_S, valid_slots=n_valid,
+             busy_windows=int(fc.valid.any(-1).sum()))
+    bound(r)
+    log_kernel("window_pipeline", r, (n_win, e))
+    return r
+
+
+def bound(r: dict) -> None:
+    """Add ``bound_ms`` and ``bound_by`` to a kernel's result."""
+    t_bytes = r["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = r["ops"] / r.get("ops_peak", PEAK_OPS_S) * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def log_kernel(name: str, r: dict, shape) -> None:
+    log(f"  {name} at {tuple(shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({r['bytes']} B, {r['ops']} ops"
+        + (f", {r['valid_slots']} valid slots in {r['busy_windows']} windows)"
+           if "valid_slots" in r else ")"))
 
 
 # ---------------------------------------------------------------------------
@@ -282,20 +419,18 @@ def stage_times(rec, cfg, dev) -> tuple[dict, object]:
     return out, win
 
 
-def window_core_profile(rec, cfg, dev, win) -> dict:
+def window_core_profile(rec, cfg, dev, win, stages=("conditioning", "clustering", "metrics")) -> dict:
     """One ``run_recording_scan`` without the tracker under
-    ``torch.profiler``. For each ``record_function`` range of
-    ``window_core.py``: its host ms, the ms of the kernels launched in it,
-    and the device span from its first kernel's start to its last's end.
-    Also the device's busy ms (kernels, copies and fills) and the run's
-    host ms."""
+    ``torch.profiler``. For each ``record_function`` range in ``stages``:
+    its host ms, the ms of the kernels launched in it, and the device span
+    from its first kernel's start to its last's end. Also the device's busy
+    ms (kernels, copies and fills) and the run's host ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.pipeline import run_recording_scan
 
-    stages = ("conditioning", "clustering", "metrics")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -318,6 +453,52 @@ def window_core_profile(rec, cfg, dev, win) -> dict:
         elif on_device:
             busy += e.device_time_total / 1e3
     return dict(ranges=ranges, device_busy_ms=busy, host_ms=wall)
+
+
+def check_fixed_scale(rec, fixed, staged, dev, float_core_ms: float) -> None:
+    """The fixed path at scale, untracked, plus ``evaluate_detection``:
+    the megakernel route's outputs identical to the staged route's on the
+    card; then steady-state times beside the float window core's."""
+    import torch
+
+    from repro_torch.core.events import pad_windows
+    from repro_torch.core.pipeline import evaluate_detection, run_recording_scan
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    mega = run_recording_scan(rec, fixed, with_tracking=False, device=dev)
+    score = evaluate_detection(rec, fixed, device=dev)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    ref = run_recording_scan(rec, staged, with_tracking=False, device=dev)
+    ref_score = evaluate_detection(rec, staged, device=dev)
+    require(mega.num_windows == ref.num_windows, "fixed scale: window counts differ")
+    for f in mega.clusters._fields:
+        equal(getattr(mega.clusters, f), getattr(ref.clusters, f), f"fixed scale: clusters.{f}")
+    for m in mega.metrics:
+        equal(mega.metrics[m].view(torch.int32), ref.metrics[m].view(torch.int32), f"fixed scale: {m}")
+    require(score == ref_score, f"fixed scale: scores differ: {score} vs {ref_score}")
+    require(counts["window_pipeline"] > 0 and counts["cluster_accum"] == counts["patch_metrics"] == 0,
+            f"fixed scale launches {counts}")
+    n = mega.num_windows
+    log(f"[4] scale recording, fixed path (untracked): {n} windows, "
+        f"{int(mega.clusters.valid.sum())} valid clusters, {score}, launches {counts}; "
+        "megakernel route identical to the staged route on the card")
+    times = {}
+    times["windowing"], win = best_ms(
+        lambda: pad_windows(rec.x, rec.y, rec.t, rec.p, fixed.batcher, dev))
+    for name, c in (("megakernel", fixed), ("staged", staged)):
+        times[f"fixed window core, {name}"], _ = best_ms(lambda: run_recording_scan(
+            rec, c, with_tracking=False, windows=win, device=dev))
+    times["evaluate_detection, megakernel"], _ = best_ms(
+        lambda: evaluate_detection(rec, fixed, device=dev))
+    times["float window core"] = float_core_ms
+    log("    steady state (best of 3, ms per recording / per window): " + ", ".join(
+        f"{k} {v:.1f} / {v / n:.4f}" for k, v in times.items()))
+    prof = window_core_profile(rec, fixed, dev, win, stages=("fixed window core",))
+    log(f"    fixed window core under the profiler: host {prof['host_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms; range (host ms, kernel ms, device span ms): "
+        + ", ".join(f"{k} ({h:.2f}, {d:.2f}, {sp:.2f})" for k, (h, d, sp) in prof["ranges"].items()))
 
 
 def main() -> int:
@@ -356,26 +537,36 @@ def main() -> int:
                     log(f"    {name}: {line.strip()}")
 
     # Phase 2: kernels against their plain versions.
+    fixed = PipelineConfig(numerics="fixed", metrics_impl="megakernel")
+    staged = PipelineConfig(numerics="fixed", metrics_impl="staged")
     scale = make_recording(**SCALE)
     win = pad_windows(scale.x, scale.y, scale.t, scale.p, cfg.batcher, dev)
-    block = _condition(cfg, EventBatch(*(a[:4096] for a in win.batch)))
+    raw = EventBatch(*(a[:4096] for a in win.batch))
+    block = _condition(cfg, raw)
     clusters = _cluster(cfg, C._histogram_fn(cfg), block)
     log(f"[2] kernels vs plain versions on the card, main-path block {tuple(block.x.shape)}")
     kernels = check_kernels(dev, block, clusters)
+    kernels["window_pipeline"] = check_window_pipeline(dev, raw, fixed)
 
-    # Phase 3: the main path on the quickstart recording.
-    ops.reset_launches()
+    # Phase 3: each path on the quickstart recording, its launch counters
+    # set to 0 just before it and read just after.
     rec = make_recording(**QUICKSTART)
-    gpu = run_main_path(rec, cfg, dev)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    cpu = run_main_path(rec, cfg, "cpu")
-    s_gpu, s_cpu = summary(*gpu, cfg), summary(*cpu, cfg)
-    log(f"[3] quickstart: cuda {s_gpu}, cpu {s_cpu}, launches {launches}")
-    compare_runs(gpu, cpu, "quickstart")
-    require(s_gpu == QUICKSTART_EXPECT, f"quickstart: expected {QUICKSTART_EXPECT}")
+    launches = {}
+    for name, c, own in (("float", cfg, FLOAT_KERNELS), ("fixed", fixed, FIXED_KERNELS)):
+        ops.reset_launches()
+        gpu = run_main_path(rec, c, dev)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        cpu = run_main_path(rec, c, "cpu")
+        s_gpu, s_cpu = summary(*gpu, c), summary(*cpu, c)
+        log(f"[3] quickstart, {name} path: cuda {s_gpu}, cpu {s_cpu}, launches {counts}")
+        compare_runs(gpu, cpu, f"quickstart ({name})")
+        require(s_gpu == QUICKSTART_EXPECT, f"quickstart ({name}): expected {QUICKSTART_EXPECT}")
+        require(all(v == 0 for k, v in counts.items() if k not in own),
+                f"quickstart ({name}): another path's kernel ran: {counts}")
+        launches.update({k: counts[k] for k in own})
 
-    # Phase 4: the main path at real scale.
+    # Phase 4: each path at real scale.
     ops.reset_launches()
     t0 = time.perf_counter()
     gpu = run_main_path(scale, cfg, dev)
@@ -387,9 +578,9 @@ def main() -> int:
     cpu_s = time.perf_counter() - t0
     compare_runs(gpu, cpu, "scale")
     s_gpu = summary(*gpu, cfg)
-    log(f"[4] scale recording ({len(scale)} events): cuda {s_gpu}, launches {scale_launches}; "
-        f"first cuda run {first:.2f} s, cpu run {cpu_s:.2f} s; integer outputs identical")
-    require(all(v > 0 for v in scale_launches.values()), f"scale launches {scale_launches}")
+    log(f"[4] scale recording ({len(scale)} events), float path: cuda {s_gpu}, launches "
+        f"{scale_launches}; first cuda run {first:.2f} s, cpu run {cpu_s:.2f} s; integer outputs identical")
+    require(all(scale_launches[k] > 0 for k in FLOAT_KERNELS), f"scale launches {scale_launches}")
     n = s_gpu["windows"]
     times, win = stage_times(scale, cfg, dev)
     log("    steady state (best of 3, ms per recording / per window): " + ", ".join(
@@ -399,18 +590,19 @@ def main() -> int:
         f"{prof['device_busy_ms']:.2f} ms; by stage (host ms, kernel ms, device span ms): "
         + ", ".join(f"{k} ({h:.2f}, {d:.2f}, {sp:.2f})" for k, (h, d, sp) in prof["ranges"].items()))
 
-    # Phase 5: the kernels ran on the main path.
-    require(all(v > 0 for v in launches.values()),
-            f"[5] a kernel was not launched on the main path: {launches}")
-    log(f"[5] launch counters on the main path: {launches}")
+    check_fixed_scale(scale, fixed, staged, dev, times["window core"])
+
+    # Phase 5: the kernels ran on their paths.
+    require(all(launches[k] > 0 for k in REPLACES),
+            f"[5] a kernel was not launched on its path: {launches}")
+    log(f"[5] launch counters on the quickstart paths: {launches}")
 
     rows = []
     for name, r in kernels.items():
         rows.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces={"cluster_accum": "src/repro/kernels/cluster_accum.py:69",
-                      "patch_metrics": "src/repro/kernels/patch_metrics.py:80"}[name],
+            replaces=REPLACES[name],
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -421,7 +613,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -5,10 +5,13 @@ The same run as ``examples/quickstart.py``, through ``repro_torch``:
 dual-threshold windowing on the host, then conditioning, grid clustering
 (the ``cluster_accum`` CUDA kernel), the six quality metrics (the
 ``patch_metrics`` CUDA kernel) and tracking on the device, then scoring
-against the simulator's ground truth.
+against the simulator's ground truth. With ``--numerics fixed`` the
+integer datapath runs instead, its whole per-window chain in the
+``window_pipeline`` CUDA kernel.
 
   PYTHONPATH=src python examples/torch_quickstart.py            # on the GPU
   PYTHONPATH=src python examples/torch_quickstart.py --device cpu
+  PYTHONPATH=src python examples/torch_quickstart.py --numerics fixed
 """
 import argparse
 
@@ -23,6 +26,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--duration", type=float, default=2.0, help="recording length, s")
+    ap.add_argument("--numerics", choices=("float", "fixed"), default="float",
+                    help="float32 datapath or the fixed-point one")
     args = ap.parse_args()
 
     print(f"Generating a {args.duration:g} s synthetic EVAS-like recording (2 RSOs)...")
@@ -32,7 +37,10 @@ def main() -> None:
           f"/ {np.sum(rec.kind == 0):,} noise)")
 
     # Paper defaults (16 px cells, min_events=5) on the kernel routes.
-    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    if args.numerics == "fixed":
+        cfg = PipelineConfig(numerics="fixed", metrics_impl="megakernel")
+    else:
+        cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
     result = run_recording_scan(rec, cfg, with_tracking=True, device=args.device)
     print(f"Processed {result.num_windows} windows on {args.device}.")
     print(f"Clusters passing min_events=5: {int(result.clusters.valid.sum())}")

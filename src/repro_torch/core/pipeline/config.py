@@ -11,7 +11,13 @@ The same fields and defaults as ``repro.core.pipeline.config``:
   ported yet;
 * ``scan_chunk`` is the reference's scheduling knob for its atlas event
   core, which this port does not have yet; results never depend on it;
-* ``numerics="fixed"`` (the integer datapath) is not ported yet.
+* ``numerics``: ``"float"`` (default) or ``"fixed"``, the integer
+  datapath of :mod:`repro_torch.core.fixed_point`. Under ``"fixed"``,
+  ``metrics_impl`` selects ``"event"``/``"staged"`` (the staged integer
+  path, plain torch) or ``"megakernel"`` (``ops.window_pipeline``, one
+  CUDA launch per window block on the card); ``"frame"``/``"kernel"``,
+  ``use_kernels`` and ``merge_neighbors`` are float-only and raise
+  ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Callable
 
 from repro_torch.core import metrics as M
 from repro_torch.core.events import DEFAULT_ROI, BatcherConfig, EventBatch
+from repro_torch.core.fixed_point import _check_fixed_config
 from repro_torch.core.grid_clustering import Clusters, GridConfig, cell_histogram
 from repro_torch.core.tracking import TrackerConfig
 
@@ -33,9 +40,9 @@ class PipelineConfig:
     hot_pixel_max: int = 12
     merge_neighbors: bool = False
     use_kernels: bool = False  # route quantize+accumulate through the kernel
-    metrics_impl: str = "event"  # "event" | "kernel" ("frame" not ported yet)
+    metrics_impl: str = "event"  # "event" | "kernel"; "staged" | "megakernel" when fixed
     scan_chunk: int = 8  # scheduling only; unused by the straight core
-    numerics: str = "float"  # "float" ("fixed" not ported yet)
+    numerics: str = "float"  # "float" | "fixed"
 
 
 def config_from_dict(d: dict[str, Any]) -> PipelineConfig:
@@ -50,12 +57,11 @@ def config_from_dict(d: dict[str, Any]) -> PipelineConfig:
 
 
 def check_supported(config: PipelineConfig) -> None:
-    """Raise for the routes this slice of the port does not have yet."""
-    if config.numerics != "float":
-        if config.numerics == "fixed":
-            raise NotImplementedError(
-                "numerics='fixed' is not ported yet (ROADMAP: fixed-point datapath)"
-            )
+    """Raise ``ValueError`` for an unknown ``numerics`` and for the knobs
+    the fixed datapath rejects."""
+    if config.numerics == "fixed":
+        _check_fixed_config(config)
+    elif config.numerics != "float":
         raise ValueError(f"unknown numerics: {config.numerics!r}")
 
 

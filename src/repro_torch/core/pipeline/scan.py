@@ -2,7 +2,8 @@
 
 The port of ``repro.core.pipeline.scan.run_recording_scan`` along the
 reference's straight core (the ``use_kernels`` / ``metrics_impl="kernel"``
-route): the recording is windowed once on the host, conditioning,
+route) and its fixed-point core (``numerics="fixed"``, staged or
+megakernel): the recording is windowed once on the host, conditioning,
 clustering and metrics run over blocks of windows on the device, and the
 tracker, the one stage with a carry, runs as a loop over windows on the
 same device.
@@ -24,7 +25,7 @@ from repro_torch.core.pipeline.config import (
     _metrics_fn,
     check_supported,
 )
-from repro_torch.core.pipeline.window_core import _window_core
+from repro_torch.core.pipeline.window_core import _fixed_window_core, _window_core
 from repro_torch.core.tracking import TrackState, init_tracks, track_recording
 
 if TYPE_CHECKING:
@@ -73,14 +74,14 @@ def run_recording_scan(
         windows = pad_windows(
             recording.x, recording.y, recording.t, recording.p, config.batcher, dev
         )
-    hist_fn = _histogram_fn(config)
-    metrics_fn = _metrics_fn(config)
+    if config.numerics == "fixed":
+        core = lambda batch: _fixed_window_core(config, batch)  # noqa: E731
+    else:
+        hist_fn, metrics_fn = _histogram_fn(config), _metrics_fn(config)
+        core = lambda batch: _window_core(config, hist_fn, metrics_fn, batch)  # noqa: E731
     n = windows.num_windows
     parts = [
-        _window_core(
-            config, hist_fn, metrics_fn,
-            EventBatch(*(a[lo:lo + WINDOW_BLOCK] for a in windows.batch)),
-        )
+        core(EventBatch(*(a[lo:lo + WINDOW_BLOCK] for a in windows.batch)))
         for lo in range(0, max(n, 1), WINDOW_BLOCK)
     ]
     clusters = Clusters(*(torch.cat(f) for f in zip(*(p[0] for p in parts))))

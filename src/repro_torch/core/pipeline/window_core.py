@@ -6,7 +6,8 @@ of one window do not depend on another window's, so each runs over a
 whole ``(W, E)`` block of windows at once, and each kernel launches once
 per block, not once per window. Each stage runs inside a
 ``torch.profiler.record_function`` range named after it, so a profile
-of any entry point splits its time by stage.
+of any entry point splits its time by stage; the fixed datapath's
+megakernel runs inside one range, ``"fixed window core"``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.events import EventBatch, persistent_event_filter, roi_filter
+from repro_torch.core.fixed_point import fixed_window_stage
 from repro_torch.core.grid_clustering import Clusters, clusters_from_histogram, merge_adjacent
 from repro_torch.core.pipeline.config import PipelineConfig
 
@@ -48,3 +50,19 @@ def _window_core(
         clusters = _cluster(config, hist_fn, batch)
     with record_function("metrics"):
         return clusters, metrics_fn(batch, clusters)
+
+
+def _fixed_window_core(
+    config: PipelineConfig, batch: EventBatch
+) -> tuple[Clusters, dict[str, torch.Tensor]]:
+    """The ``numerics="fixed"`` stage over ``(W, E)`` windows: the
+    megakernel (``metrics_impl="megakernel"``) or the staged integer
+    path; returns dequantized ``(W, K)`` clusters and metrics."""
+    if config.metrics_impl == "megakernel":
+        from repro_torch.kernels import ops as kops
+
+        with record_function("fixed window core"):
+            fc, mets, _ = kops.window_pipeline(batch, config)
+    else:
+        fc, mets = fixed_window_stage(config, batch)
+    return fc.to_clusters(), mets

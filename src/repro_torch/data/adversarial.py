@@ -57,3 +57,61 @@ def edge_slot_clusters(batch: EventBatch) -> Clusters:
     f["valid"][:, -2:] = False
     f["count"] = torch.where(f["valid"], f["count"], 0)
     return Clusters(**f)
+
+
+def _pad_window(x, y, t, capacity: int):
+    """Host planes ``(x, y, t, valid)`` of one window padded or cut to
+    ``capacity``, as the reference's ``batch_from_arrays`` packs them."""
+    n = min(len(x), capacity)
+    pad = lambda a: np.pad(np.asarray(a[:n], np.int32), (0, capacity - n))  # noqa: E731
+    return pad(x), pad(y), pad(t), np.pad(np.ones(n, bool), (0, capacity - n))
+
+
+def clustered_window(seed: int, n: int = 160, capacity: int = 128):
+    """One window of ``n`` events in four clumps, about a tenth of the
+    slots invalid: the reference's random fixed-point test window
+    (``tests/test_fixed_point.py:_random_batch``), the same arrays per
+    seed."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(40, 580, (4, 2))
+    pick = rng.integers(0, 4, n)
+    x = np.clip(centers[pick, 0] + rng.integers(-12, 13, n), 0, 639)
+    y = np.clip(centers[pick, 1] % 440 + rng.integers(-12, 13, n), 0, 479)
+    t = np.sort(rng.integers(0, 20_000, n))
+    rng.integers(0, 2, n)  # polarity, drawn to keep the reference's stream
+    x, y, t, v = _pad_window(x, y, t, capacity)
+    return x, y, t, v & (rng.random(capacity) > 0.1)
+
+
+def named_windows(capacity: int = 128) -> dict:
+    """The reference's six named edge-shape windows for the fixed-point
+    datapath (``tests/test_fixed_point.py:_adversarial_batches``), as host
+    planes ``(x, y, t, valid)``: empty, a single event, every event on one
+    pixel, capacity saturated, out-of-sensor events beside a cluster, and
+    a cluster cut by the ROI's edge."""
+    rng = np.random.default_rng(0xF1)
+    out = {}
+    x, y, t, _ = clustered_window(1, capacity=capacity)
+    out["empty"] = (x, y, t, np.zeros(capacity, bool))
+    out["single_event"] = _pad_window([300], [200], [5], capacity)
+    n = 40
+    out["all_same_pixel"] = _pad_window(np.full(n, 321), np.full(n, 234), np.arange(n), capacity)
+    x = 100 + rng.integers(0, 25, capacity)
+    y = 100 + rng.integers(0, 25, capacity)
+    out["capacity_saturated"] = _pad_window(x, y, np.sort(rng.integers(0, 9_000, capacity)), capacity)
+    x = np.concatenate([640 + rng.integers(0, 50, 30), 200 + rng.integers(0, 10, 50)])
+    y = np.concatenate([rng.integers(500, 600, 30), 300 + rng.integers(0, 10, 50)])
+    out["out_of_bounds"] = _pad_window(x, y, np.arange(80), capacity)
+    x = 14 + rng.integers(0, 12, 90)
+    y = 200 + rng.integers(0, 12, 90)
+    out["roi_boundary"] = _pad_window(x, y, np.arange(90), capacity)
+    return out
+
+
+def stacked_batch(windows, device: str | torch.device = "cpu") -> EventBatch:
+    """Host windows ``(x, y, t, valid)`` of one capacity as a ``(W, E)``
+    int32 :class:`EventBatch` on ``device``."""
+    x, y, t, v = (np.stack(a) for a in zip(*windows))
+    as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)  # noqa: E731
+    return EventBatch(as_int(x), as_int(y), as_int(t), as_int(np.zeros_like(x)),
+                      torch.as_tensor(v, device=device))

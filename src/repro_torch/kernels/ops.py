@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
 from repro_torch.kernels import ref
 
-LAUNCHES = {"cluster_accum": 0, "patch_metrics": 0}
+LAUNCHES = {"cluster_accum": 0, "patch_metrics": 0, "window_pipeline": 0}
 
 
 def reset_launches() -> None:
@@ -100,3 +101,41 @@ def patch_metrics(
         out = _pm.patch_metrics(*(a.to(d).contiguous() for a, d in zip(args, dtypes)))
         LAUNCHES["patch_metrics"] += 1
     return {name: out[..., i] for i, name in enumerate(M.METRIC_NAMES)}
+
+
+def window_pipeline(batch, config):
+    """The fixed-point per-window chain over ``(W, E)`` windows, one launch
+    for the whole block: conditioning, integer clustering and the integer
+    metric surfaces, then the shared float epilogue. Returns
+    ``(FixedClusters, metrics, surfaces)`` with ``(W, K)`` leaves, as
+    :func:`repro_torch.kernels.ref.window_pipeline_ref` does. Raises
+    ``ValueError`` for E > 1024 and K > 128, as the reference does."""
+    from repro_torch.kernels import window_pipeline as _wp
+
+    g = config.grid
+    e = batch.x.shape[-1]
+    k = g.max_clusters
+    if e > _wp.MAX_EVENTS:
+        raise ValueError(f"E ({e}) exceeds the pairwise block bound ({_wp.MAX_EVENTS})")
+    if k > _wp.MAX_SLOTS:
+        raise ValueError(f"max_clusters ({k}) must be <= {_wp.MAX_SLOTS}")
+    if _route(batch.x) == "cpu":
+        return ref.window_pipeline_ref(batch, config)
+    fields, norm, surf = _wp.window_pipeline(
+        *(a.to(torch.int32).contiguous() for a in (batch.x, batch.y, batch.t)),
+        batch.valid.to(torch.bool).contiguous(),
+        roi=tuple(config.roi), hot_pixel_max=config.hot_pixel_max,
+        cell_size=g.cell_size, grid_w=g.grid_w, grid_h=g.grid_h,
+        min_events=g.min_events, k=k, width=g.width, height=g.height,
+    )
+    if fields.shape[0]:  # with no windows the launcher returns before launching
+        LAUNCHES["window_pipeline"] += 1
+    rows = {f: fields[:, r] for r, f in enumerate(_wp.CL_FIELDS)}
+    fc = FX.FixedClusters(
+        **{f: rows[f] for f in FX.FixedClusters._fields if f != "valid"},
+        valid=rows["valid"] != 0,
+    )
+    bins = _wp.BINS
+    s = {"hist": surf[..., :bins], "norm_i": norm}
+    s.update({f: surf[..., bins + i] for i, f in enumerate(FX.SURF_FIELDS)})
+    return fc, FX.fixed_metrics_from_surfaces(fc, s), s

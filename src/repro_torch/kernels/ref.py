@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
 
 
@@ -84,3 +85,14 @@ def patch_metrics_ref(
 
     mets = M._blocked(block, x, y, w, c, leader, x0, y0, count, cvalid, norm)
     return torch.stack([mets[name] for name in M.METRIC_NAMES], dim=-1)
+
+
+def window_pipeline_ref(batch, config):
+    """The staged fixed-point path over ``(W, E)`` windows: conditioning,
+    integer clustering and integer metric surfaces one tensor stage at a
+    time, then the shared epilogue. Returns ``(FixedClusters, metrics,
+    surfaces)`` with ``(W, K)`` leaves; ``surfaces`` holds the ``(W, K,
+    bins)`` histogram, ``s1``, ``s2``, ``s_g``, ``s_e2``, ``edges`` and the
+    ``(W,)`` normalizer ``norm_i``."""
+    fc, surf = FX.fixed_stage_surfaces(config, batch)
+    return fc, FX.fixed_metrics_from_surfaces(fc, surf), surf

@@ -8,7 +8,10 @@ with a card and PyTorch alone:
 
 Integers compare exactly; for patch_metrics event_count and edge_density
 exactly, the entropies and contrast to rtol = atol = 1e-5
-(order-dependent float32 reductions and log2). The adversarial windows
+(order-dependent float32 reductions and log2). The window_pipeline
+kernel emits integers only and shares the float epilogue with its plain
+version, so its fields, valid-slot surfaces and all six metrics compare
+to the bit. The adversarial windows
 come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
 are shared with ``test_torch_kernels.py``.
 """
@@ -84,15 +87,19 @@ def test_patch_metrics_kernel_matches_plain(cuda_dev):
 
 
 @pytest.mark.cuda
-def test_main_path_on_card_equals_cpu(cuda_dev):
+@pytest.mark.parametrize("path", ["float", "fixed"])
+def test_main_path_on_card_equals_cpu(cuda_dev, path):
     from repro_torch.core.pipeline import PipelineConfig, evaluate_detection, run_recording_scan
     from repro_torch.data.synthetic import make_recording
 
     rec = make_recording(seed=7, duration_s=0.6)
-    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    if path == "float":
+        cfg, own = PipelineConfig(use_kernels=True, metrics_impl="kernel"), ("cluster_accum", "patch_metrics")
+    else:
+        cfg, own = PipelineConfig(numerics="fixed", metrics_impl="megakernel"), ("window_pipeline",)
     ops.reset_launches()
     gpu = run_recording_scan(rec, cfg, device=cuda_dev)
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all((n > 0) == (k in own) for k, n in ops.LAUNCHES.items()), ops.LAUNCHES
     cpu = run_recording_scan(rec, cfg, device="cpu")
     for f in Clusters._fields:
         assert torch.equal(getattr(gpu.clusters, f).cpu(), getattr(cpu.clusters, f)), f
@@ -101,3 +108,48 @@ def test_main_path_on_card_equals_cpu(cuda_dev):
     for f in ("hits", "misses", "age", "active"):
         assert torch.equal(getattr(gpu.tracks, f).cpu(), getattr(cpu.tracks, f)), f
     assert evaluate_detection(rec, cfg, device=cuda_dev) == evaluate_detection(rec, cfg, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_size", [16, 12])
+def test_window_pipeline_kernel_matches_plain(cuda_dev, cell_size):
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.adversarial import (
+        adversarial_batch, clustered_window, named_windows, stacked_batch,
+    )
+
+    cfg = PipelineConfig(numerics="fixed", metrics_impl="megakernel",
+                         grid=GridConfig(cell_size=cell_size))
+    batches = [
+        adversarial_batch(cuda_dev),
+        stacked_batch(list(named_windows().values()), cuda_dev),
+        stacked_batch([clustered_window(s) for s in range(4)], cuda_dev),
+        stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(2)], cuda_dev),
+    ]
+    for b in batches:
+        before = ops.LAUNCHES["window_pipeline"]
+        fc, mets, surf = ops.window_pipeline(b, cfg)
+        assert ops.LAUNCHES["window_pipeline"] == before + 1
+        rfc, rmets, rsurf = ref.window_pipeline_ref(b, cfg)
+        for f in fc._fields:
+            assert torch.equal(getattr(fc, f), getattr(rfc, f)), f
+        for m in mets:
+            assert torch.equal(mets[m].view(torch.int32), rmets[m].view(torch.int32)), m
+        assert torch.equal(surf["norm_i"], rsurf["norm_i"])
+        for k in surf:
+            if k != "norm_i":
+                assert torch.equal(surf[k][fc.valid], rsurf[k][fc.valid]), k
+
+
+@pytest.mark.cuda
+def test_window_pipeline_empty_block_counts_no_launch(cuda_dev):
+    from repro_torch.core.events import EventBatch
+    from repro_torch.core.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(numerics="fixed", metrics_impl="megakernel")
+    z = torch.zeros((0, 256), dtype=torch.int32, device=cuda_dev)
+    b = EventBatch(z, z, z, z, z.bool())
+    before = ops.LAUNCHES["window_pipeline"]
+    fc, mets, surf = ops.window_pipeline(b, cfg)
+    assert ops.LAUNCHES["window_pipeline"] == before
+    assert fc.count.shape == (0, cfg.grid.max_clusters) and surf["norm_i"].shape == (0,)

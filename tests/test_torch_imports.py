@@ -24,6 +24,15 @@ def _modules():
     )
 
 
+def test_every_module_of_the_port_is_covered():
+    mods = _modules()
+    for m in ("repro_torch.core.fixed_point", "repro_torch.kernels.window_pipeline",
+              "repro_torch.kernels.ops", "repro_torch.data.adversarial"):
+        assert m in mods, m
+    assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
+        "cluster_accum", "patch_metrics", "window_pipeline"}
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -64,6 +73,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: pad_windows(rec.x, rec.y, rec.t, rec.p),
         lambda: run_recording_scan(rec),
         lambda: run_recording_scan(rec, PipelineConfig(use_kernels=True, metrics_impl="kernel")),
+        lambda: run_recording_scan(rec, PipelineConfig(numerics="fixed", metrics_impl="megakernel")),
+        lambda: evaluate_detection(rec, PipelineConfig(numerics="fixed")),
         lambda: evaluate_detection(rec),
         lambda: init_tracks(),
         lambda: tracks_from_numpy(tracks_to_numpy(init_tracks(device="cpu"))),
@@ -93,3 +104,15 @@ def test_example_quickstart_runs_on_the_cpu_when_asked():
     assert out.returncode == 0, out.stderr
     assert "Detection accuracy" in out.stdout
     assert np.isfinite(float(re.search(r"accuracy vs ground truth: ([\d.]+)%", out.stdout)[1]))
+
+
+def test_example_quickstart_runs_the_fixed_path_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_quickstart.py"), "--device", "cpu",
+         "--numerics", "fixed"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Processed 100 windows" in out.stdout and "Confirmed tracks: 2" in out.stdout
+    assert "(tp=199 fp=4 fn=5 tn=562)" in out.stdout

@@ -17,6 +17,7 @@ from repro.core import grid_clustering as JG
 from repro.kernels import ops as jops
 from repro_torch.core import metrics as TM
 from repro_torch.core.grid_clustering import Clusters, GridConfig
+from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.kernels import _build, ops, ref
 from test_torch_cuda import _slot_clusters, _tbatch, _windows
 
@@ -93,7 +94,8 @@ def test_cpu_route_launches_no_kernel():
     x, y, t, v = _windows()
     ops.cluster_accum(*(torch.as_tensor(a) for a in (x, y, t, v)), cell_size=16, grid_w=40, grid_h=30)
     ops.patch_metrics(_tbatch(x, y, t, v), _slot_clusters(x, y, t, v))
-    assert ops.LAUNCHES == {"cluster_accum": 0, "patch_metrics": 0}
+    ops.window_pipeline(_tbatch(x, y, t, v), PipelineConfig(numerics="fixed", metrics_impl="megakernel"))
+    assert ops.LAUNCHES == {"cluster_accum": 0, "patch_metrics": 0, "window_pipeline": 0}
 
 
 def test_wrappers_refuse_other_devices_and_float_t():

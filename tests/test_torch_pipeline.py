@@ -108,7 +108,8 @@ def test_config_from_dict_roundtrip():
 @pytest.mark.parametrize(
     "kw,err",
     [(dict(metrics_impl="frame"), NotImplementedError),
-     (dict(numerics="fixed"), NotImplementedError),
+     (dict(numerics="fp8"), ValueError),
+     (dict(numerics="fixed", use_kernels=True), ValueError),
      (dict(metrics_impl="nope"), ValueError)],
 )
 def test_routes_not_ported_raise(kw, err):
