@@ -5,29 +5,50 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Two paths are driven: the float main path (``use_kernels=True,
+Three paths are driven: the float main path (``use_kernels=True,
 metrics_impl="kernel"``: the ``cluster_accum`` and ``patch_metrics``
-kernels) and the fixed-point path (``numerics="fixed",
-metrics_impl="megakernel"``: the ``window_pipeline`` kernel).
+kernels), the fixed-point path (``numerics="fixed",
+metrics_impl="megakernel"``: the ``window_pipeline`` kernel) and the live
+ingest path (``FleetPipeline`` over the ragged wire, decoded by the
+``event_unpack`` kernel, then the float kernels).
 
 Phases (any failure exits non-zero; no error is caught):
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and on adversarial windows, and time kernel, plain
-   version and, where one exists, a one-call library yardstick;
+   main path's shapes and on adversarial inputs, and time kernel, plain
+   version and, where one exists, a one-call library yardstick; this
+   includes ``grid_quantize_packed`` and ``window_entropy``, which no
+   pipeline route reaches (in the reference neither);
 3. each path on the quickstart recording through the entry points
    (``run_recording_scan`` + ``evaluate_detection``), on the card and on
    the CPU: integer outputs equal, the reference counts, and each path's
-   launch counters read just after it ran;
+   launch counters read just after it ran; then a four-sensor fleet of
+   quickstart recordings on both devices, float and fixed: integer
+   outputs equal across devices and each sensor equal to its scan;
 4. each path at real scale (60 s, 20 kHz noise, 5,154 windows): the float
    path's integer outputs equal to the CPU run, the fixed path's equal to
    its staged route on the card; steady-state times of the entry points'
-   own functions, and the window core's stages from a profile;
+   own functions, and the window core's stages from a profile. The same
+   recording through ``StreamingPipeline(wire="ragged")`` in 20 ms
+   chunks, every field equal to its scan on the card, and the
+   ``event_unpack`` kernel held against its plain version and timed on
+   the wires that stream decoded. Then the fleet at full width: 16
+   sensors of 10 s at the scale recording's density, fed in 20 ms chunks
+   over the ragged wire; every sensor's outputs equal to its
+   ``run_recording_scan`` on the card, field for field, ``feed_async`` at
+   depth 2 equal to ``feed``; per-round latency, windows per second, the
+   wire's compression and the decode's share of a round under the
+   profiler;
 5. every kernel of each path was launched on it.
 
 Then one JSON line of per-kernel numbers, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+limit, and last ``{"ok": true, "device": {...}}``. In that line a path
+kernel's ``launches`` count one pass of the scale recording through its
+path's driver (``LAUNCH_BASIS``), and its times are per launch of that
+pass: ``ms`` the kernels alone under the profiler, ``call_ms`` the
+wrapper's call under CUDA events.
 """
 from __future__ import annotations
 
@@ -56,12 +77,37 @@ QUICKSTART = dict(seed=7, duration_s=2.0, n_rsos=2)
 QUICKSTART_EXPECT = dict(windows=100, valid=203, confirmed=2, tp=199, fp=4, fn=5, tn=562)
 FLOAT_KERNELS = ("cluster_accum", "patch_metrics")
 FIXED_KERNELS = ("window_pipeline",)
+FLEET_KERNELS = ("event_unpack", "cluster_accum", "patch_metrics")
+NO_PATH = ("grid_quantize_packed", "window_entropy")  # tests only, as in the reference
 REPLACES = {
     "cluster_accum": "src/repro/kernels/cluster_accum.py:69",
     "patch_metrics": "src/repro/kernels/patch_metrics.py:80",
     "window_pipeline": "src/repro/kernels/window_pipeline.py:230",
+    "event_unpack": "src/repro/kernels/event_unpack.py:32",
+    "grid_quantize_packed": "src/repro/kernels/grid_quantize.py:41",
+    "window_entropy": "src/repro/kernels/window_entropy.py:49",
 }
+# What a path kernel's launches count: one pass of the scale recording
+# through the driver of the kernel's path. Its times are per launch of
+# that pass (mean over the launches timed).
+LAUNCH_BASIS = {
+    "cluster_accum": "run_recording_scan of the scale recording (float); timed on its blocks",
+    "patch_metrics": "run_recording_scan of the scale recording (float); timed on its blocks",
+    "window_pipeline": "run_recording_scan of the scale recording (fixed); timed on its blocks",
+    "event_unpack": "StreamingPipeline(wire='ragged') of the scale recording in 20 ms chunks; "
+                    "timed on its wires",
+}
+SOURCE = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
+SOURCE["grid_quantize_packed"] = "src/repro_torch/kernels/csrc/grid_quantize.cu"
 SCALE = dict(seed=11, duration_s=60, n_rsos=4, noise_rate_hz=20_000)
+# The fleet at full width: the scale recording's density, cut from 60 s
+# to 10 s for the time limit; sensor s has seed 11 + s.
+FLEET = dict(duration_s=10, n_rsos=4, noise_rate_hz=20_000)
+FLEET_SENSORS = 16  # DEFAULT_TIERS' third tier
+FLEET_QUICK = dict(duration_s=2.0, n_rsos=2)  # sensor s has seed 20 + s
+CHUNK_US = 20_000
+BUDGET_MS = 62.0  # the paper's per-window deterministic budget
+ENTROPY_RTOL, ENTROPY_ATOL = 1e-5, 1e-7  # order-dependent float32 sums, log2f
 
 
 def log(*a):
@@ -84,6 +130,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def kernel_device_ms(fn, names, iters: int = 20) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``names``, from ``torch.profiler`` over ``iters`` calls of ``fn()``:
+    the kernels alone, without the host time between launches that
+    :func:`cuda_ms` includes when the wrapper's host work is the longer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == DeviceType.CUDA and any(n in e.name for n in names))
+    return total / 1e3 / iters
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -99,7 +165,8 @@ def equal(a, b, what: str) -> float:
     require(
         len(diff) == 0,
         f"{what}: {len(diff)} of {a.numel()} differ, first at {diff[:3].tolist()}: "
-        f"{a[tuple(diff[0])].item()} vs {b[tuple(diff[0])].item()}" if len(diff) else "",
+        f"{a[tuple(diff[0])].item()} vs {b[tuple(diff[0])].item()}, largest difference "
+        f"{float((a.double() - b.double()).abs().max())}" if len(diff) else "",
     )
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
@@ -118,8 +185,10 @@ def close(a, b, what: str, rtol: float = RTOL, atol: float = ATOL) -> float:
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-def check_kernels(dev, main_batch, main_clusters) -> dict:
-    """Hold both kernels against their plain versions; time them."""
+def check_kernels(dev, blocks) -> dict:
+    """Hold both kernels against their plain versions, on adversarial
+    windows and on every ``(batch, clusters)`` block of the main path;
+    time them on each block, per launch (the mean over the blocks)."""
     import torch
 
     from repro_torch.core import metrics as M
@@ -137,7 +206,8 @@ def check_kernels(dev, main_batch, main_clusters) -> dict:
     for cs in (16, 12):
         g = GridConfig(cell_size=cs)
         kw = dict(cell_size=cs, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
-        for name, b in (("adversarial", adv), ("main path", main_batch)):
+        for name, b in [("adversarial", adv)] + [
+                (f"main path block {i}", b) for i, (b, _) in enumerate(blocks)]:
             got = ops.cluster_accum(b.x, b.y, b.t, b.valid, **kw)
             exp = ref.cluster_accum_ref(b.x, b.y, b.t, b.valid, **kw)
             for field, a, e in zip(("count", "sum_x", "sum_y", "sum_t"), got, exp):
@@ -149,7 +219,8 @@ def check_kernels(dev, main_batch, main_clusters) -> dict:
     adv_cl = edge_slot_clusters(adv)
     err_pm = 0.0
     exact = {"event_count", "edge_density"}
-    for name, b, cl in (("adversarial", adv, adv_cl), ("main path", main_batch, main_clusters)):
+    for name, b, cl in [("adversarial", adv, adv_cl)] + [
+            (f"main path block {i}", b, cl) for i, (b, cl) in enumerate(blocks)]:
         got = ops.patch_metrics(b, cl)
         c, leader, w, norm = M.event_normalizer(b, 640, 480)
         x0, y0 = M.window_origin(cl.centroid_x, cl.centroid_y, 640, 480)
@@ -159,59 +230,83 @@ def check_kernels(dev, main_batch, main_clusters) -> dict:
             err_pm = max(err_pm, check(got[m], exp[..., i], f"patch_metrics {m} ({name})"))
     log(f"  patch_metrics: event_count/edge_density identical, others max abs err {err_pm:.3e}")
 
-    # Timing at the main path's block shape.
-    b = main_batch
+    # Timing on each of the main path's blocks: one launch per block.
+    ca_rows, pm_rows = [], []
     g = GridConfig()
     kw = dict(cell_size=16, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
-    n_win, e = b.x.shape
     n_cells = g.n_cells
-    xi, yi, ti, vi = (a.contiguous() for a in (b.x, b.y, b.t, b.valid))
-    ca_ms = cuda_ms(lambda: _ca.cluster_accum(xi, yi, ti, vi, **kw))
-    ca_plain = cuda_ms(lambda: ref.cluster_accum_ref(xi, yi, ti, vi, **kw))
-    # Yardstick: one index_add_ of the (E, 4) stats into (W * n_cells, 4).
-    inb = (xi >= 0) & (xi < 640) & (yi >= 0) & (yi < 480) & vi
-    wf = inb.float()
-    flat = ((yi // 16) * g.grid_w + (xi // 16)).clamp(0, n_cells - 1).long()
-    flat = (flat + n_cells * torch.arange(n_win, device=dev)[:, None]).reshape(-1)
-    stats = torch.stack([wf, wf * xi, wf * yi, wf * ti], -1).reshape(-1, 4)
-    acc = torch.zeros((n_win * n_cells, 4), device=dev)
-    ca_lib = cuda_ms(lambda: acc.zero_().index_add_(0, flat, stats))
-    # Bytes the kernel must move for this block: x, y and valid of every
-    # event, t of each in-sensor valid event, four (n_cells,) rows out.
-    ca_bytes = n_win * e * (4 + 4 + 1) + int(inb.sum()) * 4 + n_win * n_cells * 16
-    ca_ops = n_win * e * 12 + n_win * n_cells * 4
-    results["cluster_accum"] = dict(
-        ms=ca_ms, plain_ms=ca_plain, library_ms=ca_lib, max_abs_err=err_ca,
-        bytes=ca_bytes, ops=ca_ops,
-    )
+    for b, cl in blocks:
+        n_win, e = b.x.shape
+        xi, yi, ti, vi = (a.contiguous() for a in (b.x, b.y, b.t, b.valid))
+        ca = lambda: _ca.cluster_accum(xi, yi, ti, vi, **kw)  # noqa: E731
+        # Yardstick: one index_add_ of the (E, 4) stats into (W * n_cells, 4).
+        inb = (xi >= 0) & (xi < 640) & (yi >= 0) & (yi < 480) & vi
+        wf = inb.float()
+        flat = ((yi // 16) * g.grid_w + (xi // 16)).clamp(0, n_cells - 1).long()
+        flat = (flat + n_cells * torch.arange(n_win, device=dev)[:, None]).reshape(-1)
+        stats = torch.stack([wf, wf * xi, wf * yi, wf * ti], -1).reshape(-1, 4)
+        acc = torch.zeros((n_win * n_cells, 4), device=dev)
+        ca_rows.append(dict(
+            ms=kernel_device_ms(ca, ("cluster_accum_kernel",)), call_ms=cuda_ms(ca),
+            plain_ms=cuda_ms(lambda: ref.cluster_accum_ref(xi, yi, ti, vi, **kw)),
+            library_ms=cuda_ms(lambda: acc.zero_().index_add_(0, flat, stats)),
+            # Bytes the kernel must move for this block: x, y and valid of
+            # every event, t of each in-sensor valid event, four (n_cells,)
+            # rows out.
+            bytes=n_win * e * (4 + 4 + 1) + int(inb.sum()) * 4 + n_win * n_cells * 16,
+            ops=n_win * e * 12 + n_win * n_cells * 4, shape=(n_win, e),
+        ))
 
-    cl = main_clusters
-    c, leader, w, norm = M.event_normalizer(b, 640, 480)
-    x0, y0 = M.window_origin(cl.centroid_x, cl.centroid_y, 640, 480)
-    args = [a.contiguous() for a in (
-        b.x, b.y, w, c.int(), leader, x0, y0, cl.count.int(), cl.valid, norm
-    )]
-    pm_ms = cuda_ms(lambda: _pm.patch_metrics(*args))
-    pm_plain = cuda_ms(lambda: ref.patch_metrics_ref(*args), iters=3, warmup=1)
-    k = cl.count.shape[-1]
-    n_valid = int(cl.valid.sum())
-    n_busy = int(cl.valid.any(-1).sum())
-    # Bytes the kernel must move: the events (x, y, c int32; w, leader
-    # bool) and norm of each window that holds a valid slot, cvalid of
-    # every slot, x0/y0/count of each valid slot, six floats out per slot.
-    pm_bytes = n_busy * (e * 14 + 4) + n_win * k * (1 + 24) + n_valid * 12
-    # Per valid slot: ~8 ops per event of the window (offsets, compares,
-    # atomics), ~25 per pixel for the Sobel, e2, sqrt and three
-    # reductions, 2 per pixel for the edge pass, ~320 for the epilogue.
-    pm_ops = n_valid * (8 * e + 27 * M.WINDOW * M.WINDOW + 320)
-    results["patch_metrics"] = dict(
-        ms=pm_ms, plain_ms=pm_plain, library_ms=None, max_abs_err=err_pm,
-        bytes=pm_bytes, ops=pm_ops, valid_slots=n_valid, busy_windows=n_busy,
-    )
+        c, leader, w, norm = M.event_normalizer(b, 640, 480)
+        x0, y0 = M.window_origin(cl.centroid_x, cl.centroid_y, 640, 480)
+        args = [a.contiguous() for a in (
+            b.x, b.y, w, c.int(), leader, x0, y0, cl.count.int(), cl.valid, norm
+        )]
+        pm = lambda: _pm.patch_metrics(*args)  # noqa: E731
+        k = cl.count.shape[-1]
+        n_valid = int(cl.valid.sum())
+        n_busy = int(cl.valid.any(-1).sum())
+        pm_rows.append(dict(
+            ms=kernel_device_ms(pm, ("patch_metrics_kernel",)), call_ms=cuda_ms(pm),
+            plain_ms=cuda_ms(lambda: ref.patch_metrics_ref(*args), iters=3, warmup=1),
+            library_ms=None,
+            # Bytes the kernel must move: the events (x, y, c int32; w,
+            # leader bool) and norm of each window that holds a valid
+            # slot, cvalid of every slot, x0/y0/count of each valid slot,
+            # six floats out per slot.
+            bytes=n_busy * (e * 14 + 4) + n_win * k * (1 + 24) + n_valid * 12,
+            # Per valid slot: ~8 ops per event of the window (offsets,
+            # compares, atomics), ~25 per pixel for the Sobel, e2, sqrt and
+            # three reductions, 2 per pixel for the edge pass, ~320 for the
+            # epilogue.
+            ops=n_valid * (8 * e + 27 * M.WINDOW * M.WINDOW + 320),
+            valid_slots=n_valid, busy_windows=n_busy, shape=(n_win, e),
+        ))
+    results["cluster_accum"] = dict(per_launch(ca_rows), max_abs_err=err_ca)
+    results["patch_metrics"] = dict(per_launch(pm_rows), max_abs_err=err_pm)
     for name, r in results.items():
         bound(r)
-        log_kernel(name, r, (n_win, e))
+        log_kernel(name, r)
     return results
+
+
+def per_launch(rows: list[dict]) -> dict:
+    """The mean over one launch each of ``rows`` (times, bytes,
+    operations; counts summed), so a row's numbers are per launch of the
+    run they stand for."""
+    out = {}
+    for key, v in rows[0].items():
+        vals = [r[key] for r in rows]
+        if key == "shape":
+            out[key] = " + ".join(str(tuple(a)) for a in vals)
+        elif key in ("valid_slots", "busy_windows"):
+            out[key] = sum(vals)
+        elif v is None:
+            out[key] = None
+        else:
+            out[key] = sum(vals) / len(vals)
+    out["n_launches_timed"] = len(rows)
+    return out
 
 
 def compare_fixed(got, want, what: str) -> float:
@@ -236,35 +331,28 @@ def compare_fixed(got, want, what: str) -> float:
     return err
 
 
-def check_window_pipeline(dev, raw_block, cfg) -> dict:
+def check_window_pipeline(dev, raw_blocks, cfg) -> dict:
     """Hold the fixed-point megakernel against its plain version (the
-    staged path) to the bit, on the main path's raw block and on
-    adversarial windows; time it."""
+    staged path) to the bit, on the main path's raw blocks and on
+    adversarial windows; time it on each block, per launch."""
     import dataclasses
 
-    import torch
-
-    from repro_torch.core import fixed_point as FX
-    from repro_torch.core.events import roi_filter
     from repro_torch.core.grid_clustering import GridConfig
-    from repro_torch.core.pipeline.window_core import _condition
     from repro_torch.data.adversarial import (
         adversarial_batch, clustered_window, named_windows, stacked_batch,
     )
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import window_pipeline as _wp
 
     c12 = dataclasses.replace(cfg, grid=GridConfig(cell_size=12))
     named = stacked_batch(list(named_windows().values()), dev)
-    cases = (
-        ("main path", raw_block, cfg),
-        ("main path, cell 12", raw_block, c12),
+    cases = sum(([(f"main path block {i}", b, cfg), (f"main path block {i}, cell 12", b, c12)]
+                 for i, b in enumerate(raw_blocks)), []) + [
         ("six named windows", named, cfg),
         ("six named windows, cell 12", named, c12),
         ("adversarial", adversarial_batch(dev), cfg),
         ("adversarial, cell 12", adversarial_batch(dev), c12),
         ("capacity 1024", stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(4)], dev), cfg),
-    )
+    ]
     err = 0.0
     for name, b, c in cases:
         err = max(err, compare_fixed(
@@ -273,13 +361,32 @@ def check_window_pipeline(dev, raw_block, cfg) -> dict:
         "(main path, six named windows, adversarial, cell 16 and 12, capacity 1024)")
 
     g = cfg.grid
-    n_win, e = raw_block.x.shape
     k = g.max_clusters
-    xi, yi, ti, vi = (a.contiguous() for a in (raw_block.x, raw_block.y, raw_block.t, raw_block.valid))
     kw = dict(roi=tuple(cfg.roi), hot_pixel_max=cfg.hot_pixel_max, cell_size=g.cell_size,
               grid_w=g.grid_w, grid_h=g.grid_h, min_events=g.min_events, k=k,
               width=g.width, height=g.height)
-    wp_ms = cuda_ms(lambda: _wp.window_pipeline(xi, yi, ti, vi, **kw))
+    r = dict(per_launch([time_window_pipeline(b, cfg, kw) for b in raw_blocks]), max_abs_err=err)
+    bound(r)
+    log_kernel("window_pipeline", r)
+    return r
+
+
+def time_window_pipeline(raw_block, cfg, kw) -> dict:
+    """One launch of the megakernel on ``raw_block``: kernel, call and
+    plain times, and the bytes and operations the block's data needs."""
+    import torch
+
+    from repro_torch.core import fixed_point as FX
+    from repro_torch.core.events import roi_filter
+    from repro_torch.core.pipeline.window_core import _condition
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import window_pipeline as _wp
+
+    g = cfg.grid
+    k = g.max_clusters
+    n_win, e = raw_block.x.shape
+    xi, yi, ti, vi = (a.contiguous() for a in (raw_block.x, raw_block.y, raw_block.t, raw_block.valid))
+    wp = lambda: _wp.window_pipeline(xi, yi, ti, vi, **kw)  # noqa: E731
     # The plain version of what the kernel computes: the integer stages
     # of the staged path (the float epilogue runs after either).
     wp_plain = cuda_ms(lambda: FX.fixed_stage_surfaces(cfg, raw_block), iters=3, warmup=1)
@@ -314,12 +421,134 @@ def check_window_pipeline(dev, raw_block, cfg) -> dict:
               + n_win * (2 * g.n_cells + k * math.ceil(math.log2(k)))
               + 40 * n_valid + 4 * int((valid_per_win * n_w).sum()) + 4 * n_in_patch
               + n_valid * 18 * _wp.WINDOW * _wp.WINDOW)
-    r = dict(ms=wp_ms, plain_ms=wp_plain, library_ms=None, max_abs_err=err,
-             bytes=wp_bytes, ops=wp_ops, ops_peak=PEAK_INT32_S, valid_slots=n_valid,
-             busy_windows=int(fc.valid.any(-1).sum()))
+    return dict(ms=kernel_device_ms(wp, ("window_pipeline_kernel",)), call_ms=cuda_ms(wp),
+                plain_ms=wp_plain, library_ms=None,
+                bytes=wp_bytes, ops=wp_ops, ops_peak=PEAK_INT32_S, valid_slots=n_valid,
+                busy_windows=int(fc.valid.any(-1).sum()), shape=(n_win, e))
+
+
+
+def check_wire_kernels(dev, scale, fleet_recs) -> dict:
+    """Hold ``event_unpack``, ``grid_quantize_packed`` and
+    ``window_entropy`` against their plain versions; time them. The first
+    is timed here at a 16-sensor fleet round and on the scale recording's
+    whole wire (its row in the kernels line comes from the stream's own
+    decodes, :func:`check_stream`); the other two lie on no path and are
+    timed on the scale recording's words and at K = 32 centres."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.events import pack_wire, wire_tensors
+    from repro_torch.data.adversarial import adversarial_wires, dual_bounds3, entropy_frame, fleet_wire
+    from repro_torch.kernels import grid_quantize as _gq
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import window_entropy as _we
+
+    results = {}
+    # event_unpack: exact on every wire.
+    cases = {"scale recording, whole wire": (pack_wire(
+        scale.x, scale.y, scale.t, scale.p, dual_bounds3(scale.t), 256)[0], 256)}
+    cases.update(adversarial_wires())
+    cases["16-sensor round"] = (fleet_wire(
+        [(r.x, r.y, r.t, r.p, dual_bounds3(r.t[:2000])[:2]) for r in fleet_recs], 256), 256)
+    err = 0.0
+    timed = {}
+    for name, (wire, cap) in cases.items():
+        args = wire_tensors(wire, dev)
+        got, exp = ops.event_unpack(*args, cap), ref.unpack_wire_ref(*args, cap)
+        err = max(err, equal(got[0], exp[0], f"event_unpack packed ({name})"),
+                  equal(got[1], exp[1], f"event_unpack valid ({name})"))
+        if name in ("scale recording, whole wire", "16-sensor round"):
+            timed[name] = time_event_unpack([(*args, cap)])
+    log(f"  event_unpack: identical to the plain version on {', '.join(cases)}")
+    for name, r in timed.items():
+        bound(r)
+        log_kernel(f"event_unpack ({name})", r)
+    results["event_unpack"] = dict(max_abs_err=err)
+
+    # grid_quantize_packed: exact, at cell sizes 16 and 12.
+    w = ((scale.y.astype(np.uint32) & 0xFFFF) << 16) | (scale.x.astype(np.uint32) & 0xFFFF)
+    edge = w.copy()
+    edge[0] = 0xFFFFFFFF
+    words = torch.from_numpy(w.view(np.int32)).to(dev)
+    err = 0.0
+    for cs in (16, 12):
+        for name, a in [("scale words", words)] + [
+                (f"{n} words from 0xFFFFFFFF", torch.from_numpy(edge[:n].view(np.int32)).to(dev))
+                for n in (1, 1023, 1024, 1025)]:
+            err = max(err, equal(ops.grid_quantize_packed(a, cs), ref.grid_quantize_packed_ref(a, cs),
+                                 f"grid_quantize_packed ({name}, cell_size={cs})"))
+    log("  grid_quantize_packed: identical to the plain version (scale words, 0xFFFFFFFF, "
+        "lengths 1/1023/1024/1025; cell 16 and 12)")
+    n = words.shape[0]
+    gq = lambda: _gq.grid_quantize_packed(words, 16)  # noqa: E731
+    r = dict(ms=kernel_device_ms(gq, ("grid_quantize_kernel",)), call_ms=cuda_ms(gq),
+             plain_ms=cuda_ms(lambda: ref.grid_quantize_packed_ref(words, 16)),
+             library_ms=None, max_abs_err=err, bytes=8 * n, ops=6 * n, ops_peak=PEAK_INT32_S,
+             shape=(n,))
     bound(r)
-    log_kernel("window_pipeline", r, (n_win, e))
-    return r
+    log_kernel("grid_quantize_packed (scale words, cell 16)", r)
+    results["grid_quantize_packed"] = r
+
+    # window_entropy: rtol 1e-5 (float32 sums in another order, log2f).
+    frame, cx, cy = entropy_frame()
+    err = 0.0
+    for name, f in (("frame", frame), ("empty frame", np.zeros_like(frame))):
+        args = [torch.from_numpy(a).to(dev) for a in (f, cx, cy)]
+        err = max(err, close(ops.window_entropy(*args), ref.window_entropy_ref(*args),
+                             f"window_entropy ({name})", ENTROPY_RTOL, ENTROPY_ATOL))
+    log(f"  window_entropy: within rtol {ENTROPY_RTOL} of the plain version (corner-clipped, "
+        f"single hot pixel and random centres; empty frame), max abs err {err:.3e}")
+    args = [torch.from_numpy(a).to(dev) for a in (frame, cx, cy)]
+    k = cx.shape[0]
+    we = lambda: _we.window_entropy(*args)  # noqa: E731
+    r = dict(ms=kernel_device_ms(we, ("window_entropy_kernel",)), call_ms=cuda_ms(we),
+             plain_ms=cuda_ms(lambda: ref.window_entropy_ref(*args)),
+             library_ms=None, max_abs_err=err,
+             bytes=k * (48 * 48 * 4 + 8 + 12), ops=k * 48 * 48 * 10, shape=(k,))
+    bound(r)
+    log_kernel(f"window_entropy (K = {k})", r)
+    results["window_entropy"] = r
+    return results
+
+
+def time_event_unpack(calls) -> dict:
+    """Per call of the ``event_unpack`` kernel over ``calls``, each the
+    wire tensors and the capacity as a decoder takes them: the kernels
+    alone (a gather launch, and an overlay launch where the spill lane
+    holds entries), the call, the plain version, and the bytes and
+    operations the wires need."""
+    from repro_torch.core.events import SPILL_SENTINEL
+    from repro_torch.kernels import event_unpack as _eu
+    from repro_torch.kernels import ref
+
+    def replay(fn):
+        for a in calls:
+            fn(*a)
+
+    n = len(calls)
+    nbytes = nops = 0
+    windows = []
+    for _, _, _, offsets, spill, cap in calls:
+        off = offsets.cpu().long()
+        s_, w_ = off.shape[0], off.shape[1] - 1
+        n_events = int((off[:, -1] - off[:, 0]).sum())
+        m = int((spill[0].cpu() != SPILL_SENTINEL).sum())
+        # Each wire event's word, delta and bit read once, the offsets and
+        # the real spill entries, 17 bytes out per slot.
+        nbytes += int(n_events * 6.125) + 4 * s_ * (w_ + 1) + 20 * m + 17 * s_ * w_ * cap
+        nops += 10 * s_ * w_ * cap
+        windows.append(w_)
+    iters = max(2, 20 // n)
+    shape = ((s_, w_, cap) if n == 1 else
+             f"{n} decodes of (1, W, {cap}), W {min(windows)}-{max(windows)}, {sum(windows)} windows")
+    return dict(
+        ms=kernel_device_ms(lambda: replay(_eu.event_unpack),
+                            ("gather_kernel", "overlay_kernel"), iters=iters) / n,
+        call_ms=cuda_ms(lambda: replay(_eu.event_unpack), iters=iters, warmup=1) / n,
+        plain_ms=cuda_ms(lambda: replay(ref.unpack_wire_ref), iters=max(1, 5 // n), warmup=1) / n,
+        library_ms=None, bytes=nbytes / n, ops=nops / n, ops_peak=PEAK_INT32_S, shape=shape,
+    )
 
 
 def bound(r: dict) -> None:
@@ -330,11 +559,12 @@ def bound(r: dict) -> None:
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
-def log_kernel(name: str, r: dict, shape) -> None:
-    log(f"  {name} at {tuple(shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-        f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
-        f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-        f"({r['bytes']} B, {r['ops']} ops"
+def log_kernel(name: str, r: dict) -> None:
+    lib = r["library_ms"]
+    per = f", per launch of {r['n_launches_timed']}" if r.get("n_launches_timed", 1) > 1 else ""
+    log(f"  {name} at {r['shape']}{per}: kernels alone {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), "
+        f"plain {r['plain_ms']:.4f} ms, library {lib if lib is None else round(lib, 4)} ms, "
+        f"bound {r['bound_ms']:.4g} ms by {r['bound_by']} ({r['bytes']:.0f} B, {r['ops']:.0f} ops"
         + (f", {r['valid_slots']} valid slots in {r['busy_windows']} windows)"
            if "valid_slots" in r else ")"))
 
@@ -419,22 +649,20 @@ def stage_times(rec, cfg, dev) -> tuple[dict, object]:
     return out, win
 
 
-def window_core_profile(rec, cfg, dev, win, stages=("conditioning", "clustering", "metrics")) -> dict:
-    """One ``run_recording_scan`` without the tracker under
-    ``torch.profiler``. For each ``record_function`` range in ``stages``:
-    its host ms, the ms of the kernels launched in it, and the device span
-    from its first kernel's start to its last's end. Also the device's busy
-    ms (kernels, copies and fills) and the run's host ms."""
+def profile_ranges(run, stages) -> dict:
+    """``run()`` under ``torch.profiler``. For each ``record_function``
+    range in ``stages``: its host ms, the ms of the kernels launched in
+    it, and the device span from its first kernel's start to its last's
+    end. Also the device's busy ms (kernels, copies and fills) and the
+    host ms of the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.pipeline import run_recording_scan
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_recording_scan(rec, cfg, with_tracking=False, windows=win, device=dev)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ranges = {k: [0.0, 0.0, 0.0] for k in stages}
@@ -455,10 +683,20 @@ def window_core_profile(rec, cfg, dev, win, stages=("conditioning", "clustering"
     return dict(ranges=ranges, device_busy_ms=busy, host_ms=wall)
 
 
-def check_fixed_scale(rec, fixed, staged, dev, float_core_ms: float) -> None:
+def window_core_profile(rec, cfg, dev, win, stages=("conditioning", "clustering", "metrics")) -> dict:
+    """One ``run_recording_scan`` without the tracker under the profiler
+    (see :func:`profile_ranges`)."""
+    from repro_torch.core.pipeline import run_recording_scan
+
+    return profile_ranges(
+        lambda: run_recording_scan(rec, cfg, with_tracking=False, windows=win, device=dev), stages)
+
+
+def check_fixed_scale(rec, fixed, staged, dev, float_core_ms: float) -> dict:
     """The fixed path at scale, untracked, plus ``evaluate_detection``:
     the megakernel route's outputs identical to the staged route's on the
-    card; then steady-state times beside the float window core's."""
+    card; then steady-state times beside the float window core's. Returns
+    the launches of the scan alone."""
     import torch
 
     from repro_torch.core.events import pad_windows
@@ -467,6 +705,8 @@ def check_fixed_scale(rec, fixed, staged, dev, float_core_ms: float) -> None:
 
     ops.reset_launches()
     mega = run_recording_scan(rec, fixed, with_tracking=False, device=dev)
+    torch.cuda.synchronize()
+    scan_counts = dict(ops.LAUNCHES)
     score = evaluate_detection(rec, fixed, device=dev)
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
@@ -499,6 +739,279 @@ def check_fixed_scale(rec, fixed, staged, dev, float_core_ms: float) -> None:
     log(f"    fixed window core under the profiler: host {prof['host_ms']:.1f} ms, device busy "
         f"{prof['device_busy_ms']:.2f} ms; range (host ms, kernel ms, device span ms): "
         + ", ".join(f"{k} ({h:.2f}, {d:.2f}, {sp:.2f})" for k, (h, d, sp) in prof["ranges"].items()))
+    return scan_counts
+
+
+# ---------------------------------------------------------------------------
+# The live ingest path: the fleet over the ragged wire.
+# ---------------------------------------------------------------------------
+
+def fleet_rounds(recs) -> list:
+    """One 20 ms chunk per sensor per round (``None`` once a sensor's
+    recording is exhausted)."""
+    from repro_torch.data.evas import iter_chunks
+
+    per = [list(iter_chunks(r, CHUNK_US)) for r in recs]
+    return [[c[i] if i < len(c) else None for c in per] for i in range(max(map(len, per)))]
+
+
+class GcClock:
+    """Milliseconds the interpreter's garbage collector ran, by generation
+    (``gc.callbacks``), while installed as a context manager."""
+
+    def __init__(self):
+        self.ms = [0.0, 0.0, 0.0]
+        self._t0 = 0.0
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms[info["generation"]] += (time.perf_counter() - self._t0) * 1e3
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+
+def run_fleet(cfg, rounds, n, dev, sync_each: bool = False):
+    """Feed every round and flush; returns the round results, the host ms
+    of each round (closed by a synchronize when ``sync_each``), the ms of
+    garbage collection inside each round and the pipeline."""
+    import torch
+
+    from repro_torch.core.pipeline import FleetPipeline
+
+    fp = FleetPipeline(cfg, n_sensors=n, device=dev)
+    out, ms, gc_ms = [], [], []
+    with GcClock() as clock:
+        for chunks in rounds + [None]:
+            g0 = sum(clock.ms)
+            t0 = time.perf_counter()
+            out.append(fp.flush() if chunks is None else fp.feed(chunks))
+            if sync_each:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            gc_ms.append(sum(clock.ms) - g0)
+    return out, ms, gc_ms, fp
+
+
+def sensor_parts(results, s) -> dict:
+    """Sensor ``s``'s outputs over every fleet round, concatenated."""
+    return concat_parts([r.sensor(s) for r in results])
+
+
+def concat_parts(parts) -> dict:
+    """The outputs of consecutive feeds of one sensor, concatenated."""
+    import torch
+
+    cat = lambda get: torch.cat([get(p) for p in parts])  # noqa: E731
+    return dict(
+        windows=sum(p.num_windows for p in parts),
+        clusters={f: cat(lambda p: getattr(p.clusters, f)) for f in parts[0].clusters._fields},
+        metrics={k: cat(lambda p: p.metrics[k]) for k in parts[0].metrics},
+        tracks={f: cat(lambda p: getattr(p.tracks, f)) for f in parts[0].tracks._fields},
+        final={f: getattr(parts[-1].final_tracks, f) for f in parts[-1].final_tracks._fields},
+    )
+
+
+def scan_parts(scan) -> dict:
+    return dict(
+        windows=scan.num_windows,
+        clusters=scan.clusters._asdict(), metrics=scan.metrics,
+        tracks=scan.tracks._asdict(), final=scan.final_tracks._asdict(),
+    )
+
+
+def compare_parts(got: dict, want: dict, what: str, exact: bool = True) -> None:
+    """Every field equal; with ``exact=False`` (two devices) integers and
+    centroids equal, metric and tracker floats within the stated
+    tolerances."""
+    require(got["windows"] == want["windows"], f"{what}: {got['windows']} vs {want['windows']} windows")
+    for group in ("clusters", "metrics", "tracks", "final"):
+        for k, a in got[group].items():
+            b = want[group][k]
+            label = f"{what}: {group}.{k}"
+            if exact or not a.is_floating_point() or group == "clusters" \
+                    or k in ("event_count", "edge_density"):
+                equal(a, b, label)
+            elif group == "metrics":
+                close(a, b, label)
+            else:
+                close(a, b, label, TRACK_RTOL, TRACK_ATOL)
+
+
+def check_quick_fleet(cfg, name, own, dev) -> dict:
+    """Four quickstart-size sensors through the fleet on the card and on
+    the CPU: each sensor equal to its scan on the same device, and the
+    two devices' integer outputs equal. Returns the card run's launches."""
+    import torch
+
+    from repro_torch.core.pipeline import run_recording_scan
+    from repro_torch.data.synthetic import make_recording
+    from repro_torch.kernels import ops
+
+    recs = [make_recording(seed=20 + s, **FLEET_QUICK) for s in range(4)]
+    rounds = fleet_rounds(recs)
+    ops.reset_launches()
+    gpu, _, _, _ = run_fleet(cfg, rounds, 4, dev)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    cpu, _, _, _ = run_fleet(cfg, rounds, 4, "cpu")
+    for s, rec in enumerate(recs):
+        g, c = sensor_parts(gpu, s), sensor_parts(cpu, s)
+        compare_parts(g, scan_parts(run_recording_scan(rec, cfg, device=dev)), f"quick fleet ({name}) {s} vs scan, cuda")
+        compare_parts(c, scan_parts(run_recording_scan(rec, cfg, device="cpu")), f"quick fleet ({name}) {s} vs scan, cpu")
+        compare_parts(g, c, f"quick fleet ({name}) sensor {s}, cuda vs cpu", exact=False)
+    windows = sum(r.total_windows for r in gpu)
+    require(all((counts[k] > 0) == (k in own) for k in counts),
+            f"quick fleet ({name}): launches {counts}, expected only {own}")
+    log(f"[3] quickstart fleet, {name} path: 4 sensors, {len(rounds)} rounds, {windows} windows; "
+        f"each sensor equal to its scan on cuda and on cpu, integer outputs equal across devices; "
+        f"launches {counts}")
+    return counts
+
+
+def check_full_fleet(cfg, recs, dev) -> dict:
+    """The fleet at full width on the card: outputs against each sensor's
+    scan, field for field; ``feed_async`` against ``feed``; per-round
+    latency, throughput, wire stats and the decode's share of a round."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import FleetPipeline, run_recording_scan
+    from repro_torch.kernels import ops
+
+    n = len(recs)
+    rounds = fleet_rounds(recs)
+    run_fleet(cfg, rounds[:20], n, dev)  # warm-up
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sync, ms, gc_ms, fp = run_fleet(cfg, rounds, n, dev, sync_each=True)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    windows = sum(r.total_windows for r in sync)
+    require(all(counts[k] > 0 for k in FLEET_KERNELS), f"full fleet launches {counts}")
+    stats = fp.wire_stats
+    lat = np.asarray(ms[:-1])  # the feeds; the flush is the last entry
+    log(f"[4] fleet at full width: {n} sensors x {FLEET['duration_s']} s, "
+        f"{sum(len(r) for r in recs)} events, {len(rounds)} rounds + flush, {windows} windows; "
+        f"launches {counts}")
+    log(f"    per-round latency (host clock, synchronize per round): p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, max {lat.max():.3f} ms "
+        f"(budget {BUDGET_MS} ms); {windows / sum(ms) * 1e3:.0f} windows/s over the rounds, "
+        f"{windows / wall:.0f} windows/s wall; wire compression {stats.compression:.3f}x, "
+        f"{stats.wire_bytes_per_round:.0f} B/round, spilled {stats.spilled}")
+    w_max = [int(r.n_windows.max()) for r in sync[:-1]]
+    first = {w: w_max.index(w) for w in set(w_max)}
+    log("    slowest rounds (index, ms, of which garbage collection ms, most windows a sensor "
+        "closed, first round of that staging shape): " + ", ".join(
+            f"({i}, {lat[i]:.3f}, {gc_ms[i]:.3f}, {w_max[i]}, {first[w_max[i]] == i})"
+            for i in np.argsort(lat)[::-1][:4])
+        + f"; garbage collection {sum(gc_ms):.1f} ms over the run"
+        + "; rounds by most windows a sensor closed: "
+        + ", ".join(f"{w}: {w_max.count(w)}" for w in sorted(first)))
+    for s, rec in enumerate(recs):
+        compare_parts(sensor_parts(sync, s), scan_parts(run_recording_scan(rec, cfg, device=dev)),
+                      f"full fleet sensor {s} vs its scan")
+    log(f"    every sensor's clusters, metrics, per-window tracks and final carry equal to its "
+        f"run_recording_scan on the card")
+
+    fa = FleetPipeline(cfg, n_sensors=n, staging_depth=2, device=dev)
+    pend = [fa.feed_async(c) for c in rounds] + [fa.feed_async([None] * n, final=True)]
+    for i, (p, want) in enumerate(zip(pend, sync)):
+        got = p.wait()
+        require(np.array_equal(got.n_windows, want.n_windows), f"async round {i}: windows differ")
+        if want.clusters is None:
+            require(got.clusters is None, f"async round {i}: clusters")
+            continue
+        for group in ("clusters", "tracks", "final_tracks"):
+            for f, a, b in zip(getattr(want, group)._fields, getattr(got, group), getattr(want, group)):
+                equal(a, b, f"async round {i}: {group}.{f}")
+        for k in want.metrics:
+            equal(got.metrics[k], want.metrics[k], f"async round {i}: {k}")
+    log(f"    feed_async at depth 2 (all {len(pend)} rounds dispatched before the first explicit "
+        f"wait, at most 2 in flight by the staging ring) equal to feed, every round")
+
+    prof_fp = FleetPipeline(cfg, n_sensors=n, device=dev)
+    for c in rounds[:40]:
+        prof_fp.feed(c)
+
+    def forty():
+        for c in rounds[40:80]:
+            prof_fp.feed(c)
+
+    prof = profile_ranges(forty, ("wire decode", "conditioning", "clustering", "metrics", "tracker"))
+    dec = prof["ranges"]["wire decode"]
+    log(f"    40 rounds under the profiler: host {prof['host_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms; wire decode host {dec[0]:.2f} ms "
+        f"({100 * dec[0] / prof['host_ms']:.1f}% of the rounds' host time), kernels {dec[1]:.3f} ms "
+        f"({100 * dec[1] / max(prof['device_busy_ms'], 1e-9):.1f}% of device busy); ranges "
+        "(host ms, kernel ms, device span ms): "
+        + ", ".join(f"{k} ({h:.2f}, {d:.3f}, {sp:.3f})" for k, (h, d, sp) in prof["ranges"].items()))
+    return counts
+
+
+def check_stream(cfg, rec, scan, dev) -> tuple[dict, dict]:
+    """The live stream on the card: ``rec`` fed to
+    ``StreamingPipeline(wire="ragged")`` in 20 ms chunks, then flushed;
+    every field equal to ``scan``, its ``run_recording_scan`` on the
+    card. The decoder's inputs in this run are kept, and after it the
+    ``event_unpack`` kernel is held against its plain version and timed
+    on them. Returns the run's launches and that kernel's row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.kernels import event_unpack as _eu
+    from repro_torch.kernels import ops, ref
+
+    chunks = list(iter_chunks(rec, CHUNK_US))
+    sp = StreamingPipeline(cfg, wire="ragged", device=dev)
+    calls = []
+    decode = sp._wire
+
+    def keep(*args):  # the stream's decoder, its inputs kept
+        calls.append(args)
+        return decode(*args)
+
+    sp._wire = keep
+    ops.reset_launches()
+    parts, ms = [], []
+    for c in chunks + [None]:
+        t0 = time.perf_counter()
+        parts.append(sp.flush() if c is None else sp.feed(*c))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(ops.LAUNCHES)
+    require(all(counts[k] > 0 for k in FLEET_KERNELS), f"stream launches {counts}")
+    require(counts["event_unpack"] == len(calls), f"stream: {len(calls)} decodes, launches {counts}")
+    compare_parts(concat_parts(parts), scan_parts(scan), "stream vs its scan")
+    lat = np.asarray(ms[:-1])
+    stats = sp.wire_stats
+    log(f"[4] stream of the scale recording over the ragged wire: {len(chunks)} feeds of "
+        f"{CHUNK_US // 1000} ms + flush, {scan.num_windows} windows, launches {counts}; every "
+        f"field equal to its run_recording_scan on the card; per-feed latency (host clock, "
+        f"synchronize per feed) p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms, max {lat.max():.3f} ms (budget {BUDGET_MS} ms); "
+        f"wire compression {stats.compression:.3f}x, spilled {stats.spilled}")
+    err = 0.0
+    for args in calls:
+        got, exp = _eu.event_unpack(*args), ref.unpack_wire_ref(*args)
+        err = max(err, equal(got[0], exp[0], "event_unpack packed (stream)"),
+                  equal(got[1], exp[1], "event_unpack valid (stream)"))
+    row = dict(time_event_unpack(calls), max_abs_err=err)
+    bound(row)
+    log(f"  event_unpack: identical to the plain version on each of the stream's {len(calls)} wires")
+    log_kernel("event_unpack (the stream's wires)", row)
+    return counts, row
 
 
 def main() -> int:
@@ -510,6 +1023,8 @@ def main() -> int:
     # Fails outside a checkout of the repo, before any result is printed.
     from repro_torch.core.events import EventBatch, pad_windows
     from repro_torch.core.pipeline import PipelineConfig, config as C
+    from repro_torch.core.pipeline import evaluate_detection, run_recording_scan
+    from repro_torch.core.pipeline.scan import WINDOW_BLOCK
     from repro_torch.core.pipeline.window_core import _cluster, _condition
     from repro_torch.data.synthetic import make_recording
     from repro_torch.kernels import _build, ops
@@ -541,17 +1056,26 @@ def main() -> int:
     staged = PipelineConfig(numerics="fixed", metrics_impl="staged")
     scale = make_recording(**SCALE)
     win = pad_windows(scale.x, scale.y, scale.t, scale.p, cfg.batcher, dev)
-    raw = EventBatch(*(a[:4096] for a in win.batch))
-    block = _condition(cfg, raw)
-    clusters = _cluster(cfg, C._histogram_fn(cfg), block)
-    log(f"[2] kernels vs plain versions on the card, main-path block {tuple(block.x.shape)}")
-    kernels = check_kernels(dev, block, clusters)
-    kernels["window_pipeline"] = check_window_pipeline(dev, raw, fixed)
+    # The blocks the scan's window core runs on, one kernel launch each.
+    n_win = win.batch.x.shape[0]
+    raws = [EventBatch(*(a[lo:lo + WINDOW_BLOCK] for a in win.batch))
+            for lo in range(0, n_win, WINDOW_BLOCK)]
+    blocks = [(b, _cluster(cfg, C._histogram_fn(cfg), b)) for b in (_condition(cfg, r) for r in raws)]
+    log(f"[2] kernels vs plain versions on the card, main-path blocks "
+        f"{[tuple(b.x.shape) for b, _ in blocks]}")
+    kernels = check_kernels(dev, blocks)
+    kernels["window_pipeline"] = check_window_pipeline(dev, raws, fixed)
+    fleet_recs = [make_recording(seed=11 + s, **FLEET) for s in range(FLEET_SENSORS)]
+    ops.reset_launches()
+    kernels.update(check_wire_kernels(dev, scale, fleet_recs))
+    torch.cuda.synchronize()
+    phase2 = dict(ops.LAUNCHES)  # the no-path kernels' only launches
+    phase2_err = kernels["event_unpack"]["max_abs_err"]
 
     # Phase 3: each path on the quickstart recording, its launch counters
     # set to 0 just before it and read just after.
     rec = make_recording(**QUICKSTART)
-    launches = {}
+    quick = {}
     for name, c, own in (("float", cfg, FLOAT_KERNELS), ("fixed", fixed, FIXED_KERNELS)):
         ops.reset_launches()
         gpu = run_main_path(rec, c, dev)
@@ -564,15 +1088,24 @@ def main() -> int:
         require(s_gpu == QUICKSTART_EXPECT, f"quickstart ({name}): expected {QUICKSTART_EXPECT}")
         require(all(v == 0 for k, v in counts.items() if k not in own),
                 f"quickstart ({name}): another path's kernel ran: {counts}")
-        launches.update({k: counts[k] for k in own})
+        quick.update({k: counts[k] for k in own})
+    quick["event_unpack"] = check_quick_fleet(cfg, "float", FLEET_KERNELS, dev)["event_unpack"]
+    check_quick_fleet(fixed, "fixed", FIXED_KERNELS, dev)
 
-    # Phase 4: each path at real scale.
+    # Phase 4: each path at real scale. The kernels line's launches are
+    # this phase's: one pass of the scale recording through each path's
+    # driver (the scan for the float and fixed kernels, the stream for
+    # the decode), each path's counters set to 0 just before it.
+    launches = {}
     ops.reset_launches()
     t0 = time.perf_counter()
-    gpu = run_main_path(scale, cfg, dev)
+    scan = run_recording_scan(scale, cfg, device=dev)
+    torch.cuda.synchronize()
+    scale_launches = dict(ops.LAUNCHES)
+    gpu = (scan, evaluate_detection(scale, cfg, device=dev))
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    scale_launches = dict(ops.LAUNCHES)
+    launches.update({k: scale_launches[k] for k in FLOAT_KERNELS})
     t0 = time.perf_counter()
     cpu = run_main_path(scale, cfg, "cpu")
     cpu_s = time.perf_counter() - t0
@@ -590,23 +1123,42 @@ def main() -> int:
         f"{prof['device_busy_ms']:.2f} ms; by stage (host ms, kernel ms, device span ms): "
         + ", ".join(f"{k} ({h:.2f}, {d:.2f}, {sp:.2f})" for k, (h, d, sp) in prof["ranges"].items()))
 
-    check_fixed_scale(scale, fixed, staged, dev, times["window core"])
+    fixed_counts = check_fixed_scale(scale, fixed, staged, dev, times["window core"])
+    launches.update({k: fixed_counts[k] for k in FIXED_KERNELS})
+    stream_counts, kernels["event_unpack"] = check_stream(cfg, scale, scan, dev)
+    kernels["event_unpack"]["max_abs_err"] = max(
+        kernels["event_unpack"]["max_abs_err"], phase2_err)
+    launches["event_unpack"] = stream_counts["event_unpack"]
+    fleet_counts = check_full_fleet(cfg, fleet_recs, dev)
 
     # Phase 5: the kernels ran on their paths.
-    require(all(launches[k] > 0 for k in REPLACES),
-            f"[5] a kernel was not launched on its path: {launches}")
-    log(f"[5] launch counters on the quickstart paths: {launches}")
+    path_kernels = [k for k in REPLACES if k not in NO_PATH]
+    require(all(launches[k] > 0 and quick[k] > 0 for k in path_kernels),
+            f"[5] a kernel was not launched on its path: scale {launches}, quickstart {quick}")
+    require(all(fleet_counts[k] > 0 for k in FLEET_KERNELS), f"[5] full fleet {fleet_counts}")
+    log(f"[5] launch counters, one pass of the scale recording through each path's driver "
+        f"(run_recording_scan, float and fixed; the ragged stream for event_unpack): {launches}; "
+        f"quickstart runs (scan; 4-sensor fleet for event_unpack): {quick}; full-width fleet: "
+        f"{ {k: fleet_counts[k] for k in FLEET_KERNELS} }; "
+        f"{ {k: phase2[k] for k in NO_PATH} } in phase 2 for the kernels no path reaches")
+    launches.update({k: phase2[k] for k in NO_PATH})
 
     rows = []
     for name, r in kernels.items():
-        rows.append(dict(
-            name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=REPLACES[name],
+        row = dict(
+            name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-        ))
+            # ms: the kernels alone (profiler), per launch; call_ms: the
+            # wrapper's call under CUDA events, host work included.
+            call_ms=r["call_ms"], timed_on=str(r["shape"]),
+        )
+        if name in NO_PATH:
+            row["path"] = "no path (tests only, as in the reference); launches are phase 2's"
+        else:
+            row["launches_on"] = LAUNCH_BASIS[name]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

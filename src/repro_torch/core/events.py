@@ -1,16 +1,19 @@
 """Event-stream representation, dual-threshold windowing and conditioning.
 
-The port of ``repro.core.events`` (windowing and conditioning half):
+The port of ``repro.core.events``:
 
 * events are (x, y, t, polarity) tuples from a 640x480 event camera;
 * the 32-bit wire word has ``x = bits[15:0]`` and ``y = bits[31:16]``;
 * conditioning = the ROI filter plus persistent-event (hot pixel) removal;
-* windows close after ``time_threshold_us`` OR ``size_threshold`` events.
+* windows close after ``time_threshold_us`` OR ``size_threshold`` events;
+* the ragged ingest wire (packed words, 16-bit deltas, a polarity
+  bitplane, CSR offsets and an exact int32 spill lane) and its decoder.
 
-Windowing stays host numpy, the same code as the reference, so the window
-planes are identical to the bit; only the packed planes become tensors on
-the requested device. Conditioning runs on a written-out window axis:
-every function here takes ``(..., E)`` tensors.
+Windowing and wire packing stay host numpy, the same code as the
+reference, so the window planes and the wire arrays are identical to the
+bit; only the packed planes become tensors on the requested device.
+Conditioning runs on a written-out window axis: every function here takes
+``(..., E)`` tensors.
 """
 from __future__ import annotations
 
@@ -173,6 +176,54 @@ class BatcherConfig:
     capacity: int = DEFAULT_CAPACITY
 
 
+def validate_monotone(
+    t: np.ndarray, last_t: int | None = None, label: str = "feed"
+) -> None:
+    """Reject a chunk whose timestamps would mis-window the stream:
+    timestamps must be non-decreasing within the chunk and must not
+    precede ``last_t``, the newest timestamp the stream has absorbed.
+    Raises ``ValueError`` on violation."""
+    t = np.asarray(t, np.int64)
+    if not len(t):
+        return
+    if len(t) > 1 and np.any(t[1:] < t[:-1]):
+        bad = int(np.argmax(t[1:] < t[:-1]))
+        raise ValueError(
+            f"{label}: chunk timestamps are not non-decreasing "
+            f"(t[{bad + 1}]={int(t[bad + 1])} < t[{bad}]={int(t[bad])}); "
+            "events must be time-sorted"
+        )
+    if last_t is not None and int(t[0]) < last_t:
+        raise ValueError(
+            f"{label}: chunk starts at t={int(t[0])} us, before the "
+            f"stream's newest absorbed timestamp {last_t} us; feeds "
+            "must be monotonically non-decreasing across boundaries"
+        )
+
+
+def monotone_merge(
+    pending: tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+    x: np.ndarray,
+    y: np.ndarray,
+    t: np.ndarray,
+    p: np.ndarray,
+    last_t: int | None = None,
+    label: str = "feed",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Validate a raw chunk (:func:`validate_monotone`) and append it to
+    the batcher remainder, as int64 arrays. A bad chunk raises before any
+    state is touched, so the caller's carry stays valid."""
+    px, py, pt, pp = pending
+    t = np.asarray(t, np.int64)
+    validate_monotone(t, last_t, label)
+    return (
+        np.concatenate([px, np.asarray(x, np.int64)]),
+        np.concatenate([py, np.asarray(y, np.int64)]),
+        np.concatenate([pt, t]),
+        np.concatenate([pp, np.asarray(p, np.int64)]),
+    )
+
+
 def dual_threshold_bounds(
     t: np.ndarray, config: BatcherConfig = BatcherConfig()
 ) -> list[tuple[int, int]]:
@@ -213,6 +264,25 @@ def dual_threshold_closed_bounds(
     return bounds, start
 
 
+def stride_bounds(
+    t: np.ndarray, window_us: int = DEFAULT_TIME_THRESHOLD_US
+) -> list[tuple[int, int, int]]:
+    """Fixed-stride window boundaries ``(start, stop, window_t0_us)``,
+    anchored to wall time: a window may be empty and its origin is the
+    stride start, not the first event's timestamp."""
+    if len(t) == 0:
+        return []
+    bounds: list[tuple[int, int, int]] = []
+    t_end = int(t[-1])
+    w0 = int(t[0])
+    while w0 <= t_end:
+        lo = int(np.searchsorted(t, w0, side="left"))
+        hi = int(np.searchsorted(t, w0 + window_us, side="left"))
+        bounds.append((lo, hi, w0))
+        w0 += window_us
+    return bounds
+
+
 class WindowedEvents(NamedTuple):
     """A recording pre-windowed into ``(W, capacity)`` planes.
 
@@ -242,16 +312,43 @@ def pack_bounds_into(
     t: np.ndarray,
     p: np.ndarray,
     bounds: list[tuple[int, int, int]],
-    bx: np.ndarray,
-    by: np.ndarray,
-    bt: np.ndarray,
-    bp: np.ndarray,
-    bv: np.ndarray,
+    bx: np.ndarray | None = None,
+    by: np.ndarray | None = None,
+    bt: np.ndarray | None = None,
+    bp: np.ndarray | None = None,
+    bv: np.ndarray | None = None,
+    *,
+    out: tuple[np.ndarray, ...] | None = None,
+    layout: str = "dense",
+    base: int = 0,
+    capacity: int | None = None,
+    spill: bool = True,
 ) -> tuple[np.ndarray, ...]:
-    """Scatter ``(start, stop, t0_us)`` windows into preallocated
-    ``(>= W, capacity)`` numpy planes (dense layout). Rows longer than
-    the capacity are truncated. Returns ``(starts, stops, t_start,
-    overflow)``."""
+    """Scatter ``(start, stop, t0_us)`` windows into preallocated numpy
+    arrays. Rows longer than the capacity are truncated.
+
+    ``layout="dense"``: five ``(>= W, capacity)`` planes, positional or
+    as ``out=(bx, by, bt, bp, bv)``; returns ``(starts, stops, t_start,
+    overflow)``. ``layout="ragged"``: ``out=(words, dt, pbits,
+    offsets_row)`` and ``capacity=`` (see :func:`_pack_bounds_ragged`);
+    returns ``(starts, stops, t_start, overflow, new_base,
+    spill_entries)``. The same contract as the reference's."""
+    if layout == "ragged":
+        if out is None or bx is not None:
+            raise TypeError("layout='ragged' requires the out= wire tuple")
+        if capacity is None:
+            raise TypeError("layout='ragged' requires capacity=")
+        return _pack_bounds_ragged(
+            x, y, t, p, bounds, out, base=base, capacity=capacity, spill=spill
+        )
+    if layout != "dense":
+        raise ValueError(f"unknown pack layout: {layout!r}")
+    if out is not None:
+        if bx is not None:
+            raise TypeError("pass destination planes positionally OR as out=")
+        bx, by, bt, bp, bv = out
+    if bx is None or by is None or bt is None or bp is None or bv is None:
+        raise TypeError("five destination planes required (positional or out=)")
     w = len(bounds)
     cap = bx.shape[-1]
     starts = np.fromiter((b[0] for b in bounds), np.int64, count=w)
@@ -308,3 +405,238 @@ def pad_windows(
     x, y, t, p = (np.asarray(a) for a in (x, y, t, p))
     bounds = [(s, e, int(t[s])) for s, e in dual_threshold_bounds(t, config)]
     return pack_bounds(x, y, t, p, bounds, config.capacity, device)
+
+
+# ---------------------------------------------------------------------------
+# Ragged ingest wire (host packing; the device decoder is below).
+#
+#   words  (N,) uint32   packed (y << 16) | x, 16-bit lanes
+#   dt     (N,) uint16   window-relative timestamp delta
+#   pol    (N/32,) uint32 polarity bitplane: event i is bit i & 31 of word
+#                        i >> 5 (np.packbits(..., bitorder="little"))
+#   offsets (S, W+1) int32 CSR row starts per (sensor, window)
+#   spill  (5, M) int32  (position, x, y, dt, p) rows for events the
+#                        packed lanes cannot hold, as the exact int32 the
+#                        dense planes would ship
+#
+# PyTorch has no ``>>`` on uint32 on the CPU and little uint16 support, so
+# the torch side carries words, pol and spill as int32 and dt as int16
+# views of the same bits, masks after every shift and zero-extends dt.
+# ---------------------------------------------------------------------------
+
+WIRE_QUANTUM = 512  # wire length bucket (multiple of 32 for the bitplane)
+SPILL_QUANTUM = 8  # spill lane length bucket
+# Padding entries in the spill lane point past any possible wire length,
+# so the decoder drops them.
+SPILL_SENTINEL = np.int32(2**31 - 1)
+
+_DT_MAX = 0xFFFF  # widest window-relative delta the packed lane holds
+
+
+def wire_pad(n: int) -> int:
+    """Events ``n`` rounded up to the wire-length bucket (minimum one)."""
+    return max(WIRE_QUANTUM, -(-n // WIRE_QUANTUM) * WIRE_QUANTUM)
+
+
+def spill_pad(m: int) -> int:
+    """Spill entries ``m`` rounded up to the spill bucket (0 stays 0)."""
+    return -(-m // SPILL_QUANTUM) * SPILL_QUANTUM
+
+
+def dense_wire_bytes(s: int, w: int, cap: int) -> int:
+    """Host->device bytes for one dense round: four int32 planes, the
+    bool validity mask, and the (2, S) int32 meta rows."""
+    return 17 * s * w * cap + 8 * s
+
+
+def ragged_wire_bytes(n_pad: int, s: int, w: int, m_pad: int) -> int:
+    """Host->device bytes for one ragged round: words + dt + bitplane
+    (6.125 B/slot over the padded wire length), CSR offsets, spill lane,
+    and the same (2, S) meta rows as the dense path."""
+    return (
+        4 * n_pad + 2 * n_pad + 4 * (n_pad // 32)  # words, dt, pol
+        + 4 * s * (w + 1)  # offsets
+        + 4 * 5 * m_pad  # spill
+        + 8 * s  # meta
+    )
+
+
+def _pack_bounds_ragged(
+    x: np.ndarray,
+    y: np.ndarray,
+    t: np.ndarray,
+    p: np.ndarray,
+    bounds: list[tuple[int, int, int]],
+    out: tuple[np.ndarray, ...],
+    *,
+    base: int,
+    capacity: int,
+    spill: bool,
+) -> tuple[np.ndarray, ...]:
+    """Ragged-mode core of :func:`pack_bounds_into` (one sensor's rows).
+
+    ``out`` is ``(words, dt, pbits, offsets_row)``: the shared 1-D wire
+    arrays (written from ``base``) plus this sensor's ``(>= W+1,)``
+    offsets row; ``pbits`` holds one polarity byte per event, packed into
+    the bitplane once per round by the caller. Windows longer than
+    ``capacity`` truncate exactly like the dense planes. Returns
+    ``(starts, stops, t_start, overflow, new_base, spill_entries)`` with
+    ``spill_entries`` a (5, k) int32 block of (position, x, y, dt, p)
+    rows. With ``spill=False`` an event the packed lanes cannot hold
+    raises ``ValueError`` instead.
+    """
+    words, dt16, pbits, offsets_row = out
+    w = len(bounds)
+    starts = np.fromiter((b[0] for b in bounds), np.int64, count=w)
+    stops = np.fromiter((b[1] for b in bounds), np.int64, count=w)
+    t_start = np.fromiter((b[2] for b in bounds), np.int64, count=w)
+    n = np.minimum(stops - starts, np.int64(capacity))
+    overflow = stops - starts - n
+    total = int(n.sum())
+    offsets_row[0] = base
+    offsets_row[1 : w + 1] = base + np.cumsum(n)
+    offsets_row[w + 1 :] = base + total  # padding windows: zero count
+    none = np.zeros((5, 0), np.int32)
+    if not total:
+        return starts, stops, t_start, overflow, base, none
+    cols = np.arange(total) - np.repeat(np.cumsum(n) - n, n)
+    src = np.repeat(starts, n) + cols
+    xv, yv, pv = x[src], y[src], p[src]
+    tv = t[src] - np.repeat(t_start, n)
+    dst = slice(base, base + total)
+    words[dst] = (
+        (yv.astype(np.uint32) & np.uint32(0xFFFF)) << np.uint32(16)
+    ) | (xv.astype(np.uint32) & np.uint32(0xFFFF))
+    dt16[dst] = tv.astype(np.uint16)
+    pbits[dst] = (pv & 1).astype(np.uint8)
+    wide = (
+        (xv < 0) | (xv > 0xFFFF) | (yv < 0) | (yv > 0xFFFF)
+        | (tv < 0) | (tv > _DT_MAX) | (pv < 0) | (pv > 1)
+    )
+    if not wide.any():
+        return starts, stops, t_start, overflow, base + total, none
+    if not spill:
+        k = int(np.argmax(wide))
+        raise ValueError(
+            f"event (x={int(xv[k])}, y={int(yv[k])}, dt={int(tv[k])}, "
+            f"p={int(pv[k])}) does not fit the packed wire lanes "
+            "(coords/deltas in [0, 65535], polarity in {0, 1}) and the "
+            "spill lane is disabled; enable spill or pre-filter the stream"
+        )
+    k = np.flatnonzero(wide)
+    # Exact int32 values, wrapping like the dense planes' int64 -> int32
+    # assignment.
+    entries = np.stack([
+        (base + k).astype(np.int64), xv[k], yv[k], tv[k], pv[k],
+    ]).astype(np.int32)
+    return starts, stops, t_start, overflow, base + total, entries
+
+
+def pack_polarity(pbits: np.ndarray, pol: np.ndarray) -> None:
+    """Pack per-event polarity bytes into the uint32 bitplane ``pol``
+    (event i is bit i & 31 of word i >> 5), in place."""
+    if len(pbits):
+        packed = np.packbits(pbits, bitorder="little")
+        pol.view(np.uint8)[: len(packed)] = packed
+
+
+def pack_wire(
+    x: np.ndarray,
+    y: np.ndarray,
+    t: np.ndarray,
+    p: np.ndarray,
+    bounds: list[tuple[int, int, int]],
+    capacity: int,
+    *,
+    spill: bool = True,
+) -> tuple[tuple[np.ndarray, ...], np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Allocate-and-pack one sensor's windows into ragged wire arrays:
+    returns ``(wire, starts, stops, t_start, overflow)`` where ``wire`` is
+    the ``(words, dt, pol, offsets, spill)`` tuple :func:`unpack_wire`
+    consumes, ``offsets`` shaped (1, W+1) and the wire length padded to
+    :data:`WIRE_QUANTUM`. Rows longer than ``capacity`` are truncated
+    exactly like :func:`pack_bounds`."""
+    w = len(bounds)
+    total = sum(min(e - s, capacity) for s, e, _ in bounds)
+    n_pad = wire_pad(total)
+    words = np.zeros(n_pad, np.uint32)
+    dt16 = np.zeros(n_pad, np.uint16)
+    pbits = np.zeros(n_pad, np.uint8)
+    offsets = np.zeros((1, w + 1), np.int32)
+    starts, stops, t_start, overflow, _, entries = pack_bounds_into(
+        x, y, t, p, bounds,
+        out=(words, dt16, pbits, offsets[0]),
+        layout="ragged", base=0, capacity=capacity, spill=spill,
+    )
+    pol = np.zeros(n_pad // 32, np.uint32)
+    pack_polarity(pbits[:total], pol)
+    m = entries.shape[1]
+    spill_lane = np.full((5, spill_pad(m)), SPILL_SENTINEL, np.int32)
+    spill_lane[:, :m] = entries
+    return (words, dt16, pol, offsets, spill_lane), starts, stops, t_start, overflow
+
+
+def wire_tensors(
+    wire: tuple[np.ndarray, ...], device: str | torch.device = "cpu",
+    non_blocking: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The numpy wire ``(words, dt, pol, offsets, spill)`` as tensors on
+    ``device``: words and pol as int32 and dt as int16 views of the same
+    bits."""
+    words, dt16, pol, offsets, spill = wire
+    views = (
+        np.ascontiguousarray(words).view(np.int32),
+        np.ascontiguousarray(dt16).view(np.int16),
+        np.ascontiguousarray(pol).view(np.int32),
+        np.ascontiguousarray(offsets, np.int32),
+        np.ascontiguousarray(spill, np.int32),
+    )
+    return tuple(
+        torch.from_numpy(v).to(device, non_blocking=non_blocking) for v in views
+    )
+
+
+def unpack_wire(
+    words: torch.Tensor,
+    dt16: torch.Tensor,
+    pol: torch.Tensor,
+    offsets: torch.Tensor,
+    spill: torch.Tensor,
+    capacity: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ragged-wire decoder in plain torch, on the tensors' device.
+
+    Takes the wire as :func:`wire_tensors` gives it (words, pol, offsets,
+    spill int32; dt int16) and returns ``(packed (4, S, W, capacity)
+    int32, valid (S, W, capacity) bool)``, the dense planes bit for bit.
+    The same steps as the reference's ``unpack_wire``: unpack every wire
+    position, overlay the spill lane in wire-position space (positions
+    outside ``[-N, N)`` dropped, negative ones counted from the end, as a
+    ``mode="drop"`` scatter does), then gather each window's slots and
+    zero every slot past its count.
+    """
+    n = words.shape[0]
+    xs, ys = unpack_words(words)
+    ts = dt16.to(torch.int32) & 0xFFFF  # zero-extend the int16 view
+    shifts = torch.arange(32, dtype=torch.int32, device=pol.device)
+    ps = ((pol[:, None] >> shifts[None, :]) & 1).reshape(-1).to(torch.int32)
+    pos = spill[0].to(torch.int64)
+    pos = torch.where(pos < 0, pos + n, pos)
+    keep = (pos >= 0) & (pos < n)
+    pos = pos[keep]
+    planes = []
+    for lane, row in zip((xs, ys, ts, ps), spill[1:]):
+        lane = lane.to(torch.int32).clone()
+        lane[pos] = row[keep].to(torch.int32)
+        planes.append(lane)
+    off = offsets.to(torch.int64)
+    counts = off[:, 1:] - off[:, :-1]  # (S, W)
+    slot = torch.arange(capacity, dtype=torch.int64, device=off.device)
+    src = off[:, :-1, None] + slot  # (S, W, cap)
+    valid = slot < counts[..., None]
+    take = src.clamp(0, max(n - 1, 0))
+    packed = torch.stack([
+        torch.where(valid, lane[take], 0) if n else torch.zeros_like(valid, dtype=torch.int32)
+        for lane in planes
+    ])
+    return packed, valid

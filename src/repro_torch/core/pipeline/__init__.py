@@ -2,7 +2,11 @@
 
 * ``config``      — :class:`PipelineConfig` + per-stage route selectors.
 * ``window_core`` — the per-window stage over a written-out window axis.
-* ``scan``        — :func:`run_recording_scan`, the whole-recording driver.
+* ``scan``        — the step core with a carry (:func:`make_core`) and
+  :func:`run_recording_scan`, the whole-recording driver.
+* ``stream``      — :class:`StreamingPipeline`, the live-feed driver.
+* ``fleet``       — :class:`FleetPipeline`, N sensors through one step per
+  round, over the dense or the ragged ingest wire.
 * ``evaluate``    — truth matching and :func:`evaluate_detection`.
 """
 from repro_torch.core.pipeline.config import (  # noqa: F401
@@ -16,7 +20,36 @@ from repro_torch.core.pipeline.window_core import (  # noqa: F401
     _condition,
     _window_core,
 )
-from repro_torch.core.pipeline.scan import ScanResult, run_recording_scan  # noqa: F401
+from repro_torch.core.pipeline.scan import (  # noqa: F401
+    ScanResult,
+    atlas_shape,
+    make_atlas,
+    make_core,
+    run_recording_scan,
+)
+from repro_torch.core.pipeline.stream import (  # noqa: F401
+    StreamingPipeline,
+    StreamState,
+    empty_scan_result,
+    stream_state_from_numpy,
+    stream_state_to_numpy,
+    tag_limit,
+)
+from repro_torch.core.pipeline.fleet import (  # noqa: F401
+    DEFAULT_TIERS,
+    FleetPipeline,
+    FleetResult,
+    FleetState,
+    PendingRound,
+    SensorCursor,
+    SlotCarry,
+    WireStats,
+    make_fleet_step,
+    make_wire_fn,
+    slot_carry_from_numpy,
+    slot_carry_to_numpy,
+    tier_capacity,
+)
 from repro_torch.core.pipeline.evaluate import (  # noqa: F401
     Candidates,
     DetectionScore,

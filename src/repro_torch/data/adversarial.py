@@ -1,11 +1,22 @@
-"""Adversarial inputs for the kernels: windows and cluster slots that the
-main path rarely produces but every kernel must get right."""
+"""Adversarial inputs for the kernels: windows, cluster slots, ingest
+wires and frames that the main path rarely produces but every kernel
+must get right."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.events import EventBatch
+from repro_torch.core.events import (
+    SPILL_SENTINEL,
+    BatcherConfig,
+    EventBatch,
+    dual_threshold_bounds,
+    pack_bounds_into,
+    pack_polarity,
+    pack_wire,
+    spill_pad,
+    wire_pad,
+)
 from repro_torch.core.grid_clustering import Clusters, GridConfig, clusters_from_histogram
 from repro_torch.kernels import ref
 
@@ -115,3 +126,93 @@ def stacked_batch(windows, device: str | torch.device = "cpu") -> EventBatch:
     as_int = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)  # noqa: E731
     return EventBatch(as_int(x), as_int(y), as_int(t), as_int(np.zeros_like(x)),
                       torch.as_tensor(v, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Ingest wires for the event_unpack kernel.
+# ---------------------------------------------------------------------------
+
+def wire_stream(seed: int, n: int = 700, span_us: int = 120_000, garbage: bool = False):
+    """A sorted random event stream (the reference's wire test stream);
+    with ``garbage``, four events no sensor emits: x = -3, y = 70,000,
+    p = 7 and x = 2**33 + 11, which wraps in int32."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 640, n).astype(np.int64)
+    y = rng.integers(0, 480, n).astype(np.int64)
+    t = np.sort(rng.integers(0, span_us, n))
+    p = rng.integers(0, 2, n).astype(np.int64)
+    if garbage:
+        x[5], y[9], p[13], x[17] = -3, 70_000, 7, 2**33 + 11
+    return x, y, t, p
+
+
+def dual_bounds3(t: np.ndarray, batcher: BatcherConfig = BatcherConfig()):
+    """Dual-threshold ``(start, stop, t0)`` bounds of a sorted stream."""
+    return [(s, e, int(t[s])) for s, e in dual_threshold_bounds(t, batcher)]
+
+
+def fleet_wire(sensors, capacity: int, n_windows: int | None = None):
+    """Pack several sensors' windows into one ragged wire, as a fleet round
+    does: ``sensors`` is a list of ``(x, y, t, p, bounds3)``; every sensor
+    gets ``n_windows`` rows (default: the most any sensor has), the extra
+    ones empty. Returns ``(words, dt, pol, offsets, spill)`` numpy."""
+    s = len(sensors)
+    w = max(len(b[4]) for b in sensors) if n_windows is None else n_windows
+    n_max = wire_pad(s * w * capacity)
+    words = np.zeros(n_max, np.uint32)
+    dt16 = np.zeros(n_max, np.uint16)
+    pbits = np.zeros(n_max, np.uint8)
+    offsets = np.zeros((s, w + 1), np.int32)
+    base, entries = 0, []
+    for i, (x, y, t, p, bounds) in enumerate(sensors):
+        *_, base, e = pack_bounds_into(
+            x, y, t, p, bounds, out=(words, dt16, pbits, offsets[i]),
+            layout="ragged", base=base, capacity=capacity,
+        )
+        entries.append(e)
+    n_pad = wire_pad(base)
+    pol = np.zeros(n_pad // 32, np.uint32)
+    pack_polarity(pbits[:base], pol)
+    ent = np.concatenate(entries, axis=1)
+    spill = np.full((5, spill_pad(ent.shape[1])), SPILL_SENTINEL, np.int32)
+    spill[:, : ent.shape[1]] = ent
+    return words[:n_pad], dt16[:n_pad], pol, offsets, spill
+
+
+def adversarial_wires() -> dict:
+    """Named ``(wire, capacity)`` cases for the decoder: a spill lane with
+    out-of-lane and int32-wrapped values; capacity truncation (capacity
+    32 under a 200-event size cut); a three-sensor round with an idle
+    sensor, empty windows, padded rows and spills behind a base offset;
+    a spill lane of sentinels only."""
+    out = {}
+    x, y, t, p = wire_stream(3, garbage=True)
+    out["spill lane"] = (pack_wire(x, y, t, p, dual_bounds3(t), 256)[0], 256)
+    trunc = BatcherConfig(capacity=32, size_threshold=200)
+    x, y, t, p = wire_stream(7, n=500, span_us=50_000)
+    out["capacity truncation"] = (pack_wire(x, y, t, p, dual_bounds3(t, trunc), 32)[0], 32)
+    a, b = wire_stream(11, n=600), wire_stream(12, n=300, garbage=True)
+    empty = [(0, 0, 0), (10, 10, int(a[2][10]))]  # zero-event windows
+    out["round with idle, empty and padded rows"] = (fleet_wire([
+        (*a, dual_bounds3(a[2])[:4] + empty),
+        (*a, []),
+        (*b, dual_bounds3(b[2])[:3]),
+    ], 256), 256)
+    wire = list(pack_wire(*wire_stream(4), dual_bounds3(wire_stream(4)[2]), 256)[0])
+    wire[4] = np.full((5, 8), SPILL_SENTINEL, np.int32)
+    out["sentinel-only spill lane"] = (tuple(wire), 256)
+    return out
+
+
+def entropy_frame(seed: int = 0, h: int = 480, w: int = 640):
+    """A normalized ``(h, w)`` float32 frame in [0, 1] (sparse, like an
+    accumulated event frame) and ``(K,)`` int32 centres: random ones,
+    the four corners and points past them (clipped origins), and a
+    single hot pixel's centre. A second, empty frame is all zeros."""
+    rng = np.random.default_rng(seed)
+    frame = np.where(rng.random((h, w)) < 0.05, rng.random((h, w)), 0.0).astype(np.float32)
+    frame[70:130, 270:330] = 0.0
+    frame[100, 300] = 1.0  # a hot pixel alone in its window
+    cx = np.r_[rng.integers(0, w, 24), 0, w - 1, -40, w + 40, 300, 5, w - 3, 24]
+    cy = np.r_[rng.integers(0, h, 24), 0, h - 1, -40, h + 40, 100, h - 2, 7, 24]
+    return frame, cx.astype(np.int32), cy.astype(np.int32)

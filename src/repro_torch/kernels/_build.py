@@ -19,7 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("cluster_accum", "patch_metrics", "window_pipeline")
+SOURCES = (
+    "cluster_accum", "patch_metrics", "window_pipeline",
+    "event_unpack", "grid_quantize", "window_entropy",
+)
 # sm_90a: Hopper with its architecture-specific features. No fast math:
 # division and sqrt stay IEEE, which the metric kernel relies on.
 NVCC_FLAGS = (

@@ -14,7 +14,10 @@ from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
 from repro_torch.kernels import ref
 
-LAUNCHES = {"cluster_accum": 0, "patch_metrics": 0, "window_pipeline": 0}
+LAUNCHES = {
+    "cluster_accum": 0, "patch_metrics": 0, "window_pipeline": 0,
+    "event_unpack": 0, "grid_quantize_packed": 0, "window_entropy": 0,
+}
 
 
 def reset_launches() -> None:
@@ -139,3 +142,71 @@ def window_pipeline(batch, config):
     s = {"hist": surf[..., :bins], "norm_i": norm}
     s.update({f: surf[..., bins + i] for i, f in enumerate(FX.SURF_FIELDS)})
     return fc, FX.fixed_metrics_from_surfaces(fc, s), s
+
+
+def event_unpack(
+    words: torch.Tensor,
+    dt16: torch.Tensor,
+    pol: torch.Tensor,
+    offsets: torch.Tensor,
+    spill: torch.Tensor,
+    capacity: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ragged-wire decode: wire tensors as
+    :func:`repro_torch.core.events.wire_tensors` gives them -> packed
+    ``(4, S, W, capacity)`` int32 x/y/t/p planes and ``(S, W, capacity)``
+    bool validity, the dense planes bit for bit."""
+    if _route(words) == "cpu":
+        return ref.unpack_wire_ref(words, dt16, pol, offsets, spill, capacity)
+    from repro_torch.kernels import event_unpack as _eu
+
+    args = (words, dt16, pol, offsets, spill)
+    dtypes = (torch.int32, torch.int16, torch.int32, torch.int32, torch.int32)
+    packed, valid = _eu.event_unpack(
+        *(a.to(d).contiguous() for a, d in zip(args, dtypes)), capacity
+    )
+    if valid.numel():  # with no slots the launcher returns before launching
+        LAUNCHES["event_unpack"] += 1
+    return packed, valid
+
+
+def grid_quantize_packed(words: torch.Tensor, cell_size: int = 16) -> torch.Tensor:
+    """The paper's IP core over a 1-D stream of packed words (int32
+    holding the uint32 bits): returns the packed cell words, as int32
+    holding the uint32 bits."""
+    if _route(words) == "cpu":
+        return ref.grid_quantize_packed_ref(words, cell_size)
+    from repro_torch.kernels import grid_quantize as _gq
+
+    out = _gq.grid_quantize_packed(words.to(torch.int32).contiguous(), cell_size)
+    if out.numel():
+        LAUNCHES["grid_quantize_packed"] += 1
+    return out
+
+
+def window_entropy(
+    frame: torch.Tensor,
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    *,
+    window: int = 48,
+    bins: int = 32,
+) -> torch.Tensor:
+    """Per-cluster ``(3, K)`` [shannon, renyi, contrast] over ``window``
+    slices of an ``(H, W)`` [0, 1] frame."""
+    if _route(frame) == "cpu":
+        return ref.window_entropy_ref(frame, cx, cy, window=window, bins=bins)
+    from repro_torch.kernels import window_entropy as _we
+
+    if (window, bins) != (_we.WINDOW, _we.BINS):
+        raise ValueError(
+            f"the CUDA window_entropy kernel is built for window={_we.WINDOW}, "
+            f"bins={_we.BINS}; got window={window}, bins={bins}"
+        )
+    out = _we.window_entropy(
+        frame.to(torch.float32).contiguous(),
+        cx.to(torch.int32).contiguous(), cy.to(torch.int32).contiguous(),
+    )
+    if out.shape[1]:
+        LAUNCHES["window_entropy"] += 1
+    return out

@@ -11,6 +11,10 @@ import torch
 
 from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
+from repro_torch.core.events import unpack_wire
+
+# The event_unpack kernel's plain version is the port's plain decoder.
+unpack_wire_ref = unpack_wire
 
 
 def cluster_accum_ref(
@@ -96,3 +100,45 @@ def window_pipeline_ref(batch, config):
     ``(W,)`` normalizer ``norm_i``."""
     fc, surf = FX.fixed_stage_surfaces(config, batch)
     return fc, FX.fixed_metrics_from_surfaces(fc, surf), surf
+
+
+def grid_quantize_packed_ref(words: torch.Tensor, cell_size: int = 16) -> torch.Tensor:
+    """Packed event words -> packed cell words ``(cy << 16) | cx``, each
+    16-bit field floor-divided by ``cell_size``. Takes and returns int32
+    tensors that hold the uint32 bits (the arithmetic runs in int64)."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    cx = torch.div(w & 0xFFFF, cell_size, rounding_mode="floor")
+    cy = torch.div((w >> 16) & 0xFFFF, cell_size, rounding_mode="floor")
+    out = (cy << 16) | cx
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def window_entropy_ref(
+    frame: torch.Tensor,
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    *,
+    window: int = 48,
+    bins: int = 32,
+) -> torch.Tensor:
+    """Per centre, the ``window``-square slice of an ``(H, W)`` [0, 1]
+    frame, its origin clipped into the frame -> ``bins``-bin Shannon
+    entropy, Renyi entropy of order 2 and the population standard
+    deviation. Returns ``(3, K)`` float32."""
+    h, w = frame.shape
+    dev = frame.device
+    x0 = torch.clamp(cx.to(torch.int64) - window // 2, 0, w - window)
+    y0 = torch.clamp(cy.to(torch.int64) - window // 2, 0, h - window)
+    r = torch.arange(window, device=dev)
+    rows = (y0[:, None] + r)[:, :, None]
+    cols = (x0[:, None] + r)[:, None, :]
+    flat = frame.to(torch.float32)[rows, cols].reshape(cx.shape[0], -1)  # (K, window^2)
+    idx = torch.clamp((flat * bins).to(torch.int32), 0, bins - 1).to(torch.int64)
+    counts = torch.zeros((cx.shape[0], bins), dtype=torch.float32, device=dev)
+    counts.scatter_add_(1, idx, torch.ones_like(flat))
+    p = counts / torch.clamp_min(counts.sum(-1, keepdim=True), 1.0)
+    shannon = -torch.where(p > 0, p * torch.log2(torch.clamp_min(p, 1e-12)), 0.0).sum(-1)
+    renyi = -torch.log2(torch.clamp_min((p * p).sum(-1), 1e-12))
+    mean = flat.mean(-1, keepdim=True)
+    contrast = torch.sqrt(((flat - mean) ** 2).mean(-1))
+    return torch.stack([shannon, renyi, contrast])

@@ -11,7 +11,12 @@ exactly, the entropies and contrast to rtol = atol = 1e-5
 (order-dependent float32 reductions and log2). The window_pipeline
 kernel emits integers only and shares the float epilogue with its plain
 version, so its fields, valid-slot surfaces and all six metrics compare
-to the bit. The adversarial windows
+to the bit. The event_unpack and grid_quantize_packed kernels compare to
+the bit; window_entropy to rtol 1e-5 (atol 1e-7 for exact zeros): its
+float32 sums run in another order than the plain version's, and log2f is
+not torch's log2. The fleet's asynchronous rounds equal its synchronous
+ones, and both each sensor's scan, to the bit; so does the stream over
+the ragged wire equal its scan. The adversarial inputs
 come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
 are shared with ``test_torch_kernels.py``.
 """
@@ -153,3 +158,123 @@ def test_window_pipeline_empty_block_counts_no_launch(cuda_dev):
     fc, mets, surf = ops.window_pipeline(b, cfg)
     assert ops.LAUNCHES["window_pipeline"] == before
     assert fc.count.shape == (0, cfg.grid.max_clusters) and surf["norm_i"].shape == (0,)
+
+
+def _wire_on(wire, dev):
+    from repro_torch.core.events import wire_tensors
+
+    return wire_tensors(wire, dev)
+
+
+@pytest.mark.cuda
+def test_event_unpack_kernel_matches_plain(cuda_dev):
+    from repro_torch.data.adversarial import adversarial_wires, dual_bounds3, fleet_wire, wire_stream
+
+    cases = dict(adversarial_wires())
+    streams = [wire_stream(40 + s, n=900) for s in range(16)]
+    cases["16-sensor round"] = (fleet_wire([(*st, dual_bounds3(st[2])[:3]) for st in streams], 256), 256)
+    for name, (wire, cap) in cases.items():
+        args = _wire_on(wire, cuda_dev)
+        before = ops.LAUNCHES["event_unpack"]
+        packed, valid = ops.event_unpack(*args, cap)
+        assert ops.LAUNCHES["event_unpack"] == before + 1, name
+        rp, rv = ref.unpack_wire_ref(*args, cap)
+        assert torch.equal(packed, rp), name
+        assert torch.equal(valid, rv), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_size", [16, 12, 1, 7])
+def test_grid_quantize_kernel_matches_plain(cuda_dev, cell_size):
+    rng = np.random.default_rng(cell_size)
+    for n in (1, 127, 128, 1024, 1025, 40_961):
+        w = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        w[0] = 0xFFFFFFFF
+        words = torch.from_numpy(w.view(np.int32)).to(cuda_dev)
+        before = ops.LAUNCHES["grid_quantize_packed"]
+        got = ops.grid_quantize_packed(words, cell_size)
+        assert ops.LAUNCHES["grid_quantize_packed"] == before + 1
+        assert torch.equal(got, ref.grid_quantize_packed_ref(words, cell_size)), n
+
+
+@pytest.mark.cuda
+def test_window_entropy_kernel_matches_plain(cuda_dev):
+    from repro_torch.data.adversarial import entropy_frame
+
+    frame, cx, cy = entropy_frame()
+    for f in (frame, np.zeros_like(frame)):
+        args = [torch.from_numpy(a).to(cuda_dev) for a in (f, cx, cy)]
+        before = ops.LAUNCHES["window_entropy"]
+        got = ops.window_entropy(*args)
+        assert ops.LAUNCHES["window_entropy"] == before + 1
+        torch.testing.assert_close(got, ref.window_entropy_ref(*args), rtol=1e-5, atol=1e-7)
+
+
+def _fleet_rounds(recs, chunk_us=20_000):
+    from repro_torch.data.evas import iter_chunks
+
+    per = [list(iter_chunks(r, chunk_us)) for r in recs]
+    return [[c[i] if i < len(c) else None for c in per] for i in range(max(map(len, per)))]
+
+
+def _assert_parts_equal(got, want):
+    for f in got.clusters._fields:
+        assert torch.equal(getattr(got.clusters, f).cpu(), getattr(want.clusters, f).cpu()), f
+    for m in want.metrics:
+        assert torch.equal(got.metrics[m].cpu(), want.metrics[m].cpu()), m
+    for f in want.tracks._fields:
+        assert torch.equal(getattr(got.tracks, f).cpu(), getattr(want.tracks, f).cpu()), f
+
+
+@pytest.mark.cuda
+def test_fleet_async_equals_sync_and_scan_on_card(cuda_dev):
+    from repro_torch.core.pipeline import FleetPipeline, PipelineConfig, run_recording_scan
+    from repro_torch.data.synthetic import make_recording
+
+    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    recs = [make_recording(seed=20 + s, duration_s=0.5, n_rsos=1 + s % 2) for s in range(4)]
+    rounds = _fleet_rounds(recs)
+    ops.reset_launches()
+    fp = FleetPipeline(cfg, n_sensors=4, device=cuda_dev)
+    sync = [fp.feed(r) for r in rounds] + [fp.flush()]
+    assert all(ops.LAUNCHES[k] > 0 for k in ("event_unpack", "cluster_accum", "patch_metrics"))
+    fa = FleetPipeline(cfg, n_sensors=4, staging_depth=2, device=cuda_dev)
+    pend = [fa.feed_async(r) for r in rounds] + [fa.feed_async([None] * 4, final=True)]
+    got = [p.wait() for p in pend]
+    for s, rec in enumerate(recs):
+        scan = run_recording_scan(rec, cfg, device=cuda_dev)
+        for a, b in zip(got, sync):
+            _assert_parts_equal(a.sensor(s), b.sensor(s))
+        parts = [b.sensor(s) for b in sync]
+        for f in scan.clusters._fields:
+            cat = torch.cat([getattr(p.clusters, f) for p in parts])
+            assert torch.equal(cat, getattr(scan.clusters, f).cpu()), f
+        for f in scan.final_tracks._fields:
+            assert torch.equal(getattr(parts[-1].final_tracks, f), getattr(scan.final_tracks, f).cpu()), f
+
+
+@pytest.mark.cuda
+def test_stream_ragged_equals_scan_on_card(cuda_dev):
+    """The live stream over the ragged wire on the card (decoded by the
+    ``event_unpack`` kernel) equals the scan of the same recording on the
+    card, every field, per-window tracks and the final carry included."""
+    from repro_torch.core.pipeline import PipelineConfig, StreamingPipeline, run_recording_scan
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.data.synthetic import make_recording
+
+    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    rec = make_recording(seed=11, duration_s=1.0, n_rsos=4, noise_rate_hz=20_000)
+    ops.reset_launches()
+    sp = StreamingPipeline(cfg, wire="ragged", device=cuda_dev)
+    parts = [sp.feed(*c) for c in iter_chunks(rec, 20_000)] + [sp.flush()]
+    assert all(ops.LAUNCHES[k] > 0 for k in ("event_unpack", "cluster_accum", "patch_metrics"))
+    scan = run_recording_scan(rec, cfg, device=cuda_dev)
+    assert sum(p.num_windows for p in parts) == scan.num_windows
+    whole = lambda get: torch.cat([get(p) for p in parts])  # noqa: E731
+    for f in scan.clusters._fields:
+        assert torch.equal(whole(lambda p: getattr(p.clusters, f)), getattr(scan.clusters, f)), f
+    for m in scan.metrics:
+        assert torch.equal(whole(lambda p: p.metrics[m]), scan.metrics[m]), m
+    for f in scan.tracks._fields:
+        assert torch.equal(whole(lambda p: getattr(p.tracks, f)), getattr(scan.tracks, f)), f
+        assert torch.equal(getattr(parts[-1].final_tracks, f), getattr(scan.final_tracks, f)), f

@@ -14,7 +14,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-STANDALONE = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"]
+STANDALONE = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
+    (REPO / "examples").glob("torch_*.py"))
 
 
 def _modules():
@@ -27,10 +28,17 @@ def _modules():
 def test_every_module_of_the_port_is_covered():
     mods = _modules()
     for m in ("repro_torch.core.fixed_point", "repro_torch.kernels.window_pipeline",
-              "repro_torch.kernels.ops", "repro_torch.data.adversarial"):
+              "repro_torch.kernels.ops", "repro_torch.data.adversarial",
+              "repro_torch.core.pipeline.stream", "repro_torch.core.pipeline.fleet",
+              "repro_torch.distributed.sharding", "repro_torch.data.evas",
+              "repro_torch.kernels.event_unpack", "repro_torch.kernels.grid_quantize",
+              "repro_torch.kernels.window_entropy"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
-        "cluster_accum", "patch_metrics", "window_pipeline"}
+        "cluster_accum", "patch_metrics", "window_pipeline",
+        "event_unpack", "grid_quantize", "window_entropy"}
+    assert {p.name for p in (REPO / "examples").glob("torch_*.py")} == {
+        "torch_quickstart.py", "torch_fleet_quickstart.py"}
 
 
 def test_importing_every_module_loads_no_jax():
@@ -63,7 +71,9 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     _no_card()
     from repro_torch import resolve_device
     from repro_torch.core.events import pad_windows
-    from repro_torch.core.pipeline import PipelineConfig, evaluate_detection, run_recording_scan
+    from repro_torch.core.pipeline import (
+        FleetPipeline, PipelineConfig, StreamingPipeline, evaluate_detection, run_recording_scan,
+    )
     from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
     from repro_torch.data.synthetic import make_recording
 
@@ -78,6 +88,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: evaluate_detection(rec),
         lambda: init_tracks(),
         lambda: tracks_from_numpy(tracks_to_numpy(init_tracks(device="cpu"))),
+        lambda: StreamingPipeline(),
+        lambda: StreamingPipeline(wire="ragged"),
+        lambda: FleetPipeline(n_sensors=4),
+        lambda: FleetPipeline(PipelineConfig(use_kernels=True, metrics_impl="kernel"), n_sensors=16),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -116,3 +130,15 @@ def test_example_quickstart_runs_the_fixed_path_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert "Processed 100 windows" in out.stdout and "Confirmed tracks: 2" in out.stdout
     assert "(tp=199 fp=4 fn=5 tn=562)" in out.stdout
+
+
+def test_example_fleet_quickstart_runs_on_the_cpu_when_asked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_fleet_quickstart.py"), "--device", "cpu",
+         "--duration", "0.4"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Processed" in out.stdout and "fleet rounds" in out.stdout
+    assert out.stdout.count("confirmed tracks") == 4

@@ -95,7 +95,8 @@ def test_cpu_route_launches_no_kernel():
     ops.cluster_accum(*(torch.as_tensor(a) for a in (x, y, t, v)), cell_size=16, grid_w=40, grid_h=30)
     ops.patch_metrics(_tbatch(x, y, t, v), _slot_clusters(x, y, t, v))
     ops.window_pipeline(_tbatch(x, y, t, v), PipelineConfig(numerics="fixed", metrics_impl="megakernel"))
-    assert ops.LAUNCHES == {"cluster_accum": 0, "patch_metrics": 0, "window_pipeline": 0}
+    assert ops.LAUNCHES == {"cluster_accum": 0, "patch_metrics": 0, "window_pipeline": 0,
+                            "event_unpack": 0, "grid_quantize_packed": 0, "window_entropy": 0}
 
 
 def test_wrappers_refuse_other_devices_and_float_t():
