@@ -34,7 +34,9 @@ Phases (any failure exits non-zero; no error is caught):
    recording through ``StreamingPipeline(wire="ragged")`` in 20 ms
    chunks, every field equal to its scan on the card, and the
    ``event_unpack`` kernel held against its plain version and timed on
-   the wires that stream decoded. Then the fleet at full width: 16
+   the wires that stream decoded, one kernel per decode;
+   ``cluster_accum`` and ``patch_metrics`` timed per launch on that
+   stream's own inputs (1-2 windows a feed). Then the fleet at full width: 16
    sensors of 10 s at the scale recording's density, fed in 20 ms chunks
    over the ragged wire; every sensor's outputs equal to its
    ``run_recording_scan`` on the card, field for field, ``feed_async`` at
@@ -48,7 +50,10 @@ limit, and last ``{"ok": true, "device": {...}}``. In that line a path
 kernel's ``launches`` count one pass of the scale recording through its
 path's driver (``LAUNCH_BASIS``), and its times are per launch of that
 pass: ``ms`` the kernels alone under the profiler, ``call_ms`` the
-wrapper's call under CUDA events.
+wrapper's call under CUDA events; ``score_ms`` is launches x (ms -
+bound_ms), the ranking of the next redesign. The rows of
+``cluster_accum`` and ``patch_metrics`` carry the same numbers for the
+ragged stream under ``stream``.
 """
 from __future__ import annotations
 
@@ -135,6 +140,12 @@ def kernel_device_ms(fn, names, iters: int = 20) -> float:
     ``names``, from ``torch.profiler`` over ``iters`` calls of ``fn()``:
     the kernels alone, without the host time between launches that
     :func:`cuda_ms` includes when the wrapper's host work is the longer."""
+    return kernel_device_profile(fn, names, iters)[0]
+
+
+def kernel_device_profile(fn, names, iters: int = 20) -> tuple[float, float]:
+    """:func:`kernel_device_ms`, and the number of those kernels the
+    device ran per call of ``fn()``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -145,9 +156,9 @@ def kernel_device_ms(fn, names, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.events()
-                if e.device_type == DeviceType.CUDA and any(n in e.name for n in names))
-    return total / 1e3 / iters
+    ran = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    return sum(e.device_time_total for e in ran) / 1e3 / iters, len(ran) / iters
 
 
 def require(cond: bool, what: str) -> None:
@@ -250,11 +261,7 @@ def check_kernels(dev, blocks) -> dict:
             ms=kernel_device_ms(ca, ("cluster_accum_kernel",)), call_ms=cuda_ms(ca),
             plain_ms=cuda_ms(lambda: ref.cluster_accum_ref(xi, yi, ti, vi, **kw)),
             library_ms=cuda_ms(lambda: acc.zero_().index_add_(0, flat, stats)),
-            # Bytes the kernel must move for this block: x, y and valid of
-            # every event, t of each in-sensor valid event, four (n_cells,)
-            # rows out.
-            bytes=n_win * e * (4 + 4 + 1) + int(inb.sum()) * 4 + n_win * n_cells * 16,
-            ops=n_win * e * 12 + n_win * n_cells * 4, shape=(n_win, e),
+            **cluster_accum_cost(xi, yi, vi, **kw), shape=(n_win, e),
         ))
 
         c, leader, w, norm = M.event_normalizer(b, 640, 480)
@@ -263,24 +270,10 @@ def check_kernels(dev, blocks) -> dict:
             b.x, b.y, w, c.int(), leader, x0, y0, cl.count.int(), cl.valid, norm
         )]
         pm = lambda: _pm.patch_metrics(*args)  # noqa: E731
-        k = cl.count.shape[-1]
-        n_valid = int(cl.valid.sum())
-        n_busy = int(cl.valid.any(-1).sum())
         pm_rows.append(dict(
             ms=kernel_device_ms(pm, ("patch_metrics_kernel",)), call_ms=cuda_ms(pm),
             plain_ms=cuda_ms(lambda: ref.patch_metrics_ref(*args), iters=3, warmup=1),
-            library_ms=None,
-            # Bytes the kernel must move: the events (x, y, c int32; w,
-            # leader bool) and norm of each window that holds a valid
-            # slot, cvalid of every slot, x0/y0/count of each valid slot,
-            # six floats out per slot.
-            bytes=n_busy * (e * 14 + 4) + n_win * k * (1 + 24) + n_valid * 12,
-            # Per valid slot: ~8 ops per event of the window (offsets,
-            # compares, atomics), ~25 per pixel for the Sobel, e2, sqrt and
-            # three reductions, 2 per pixel for the edge pass, ~320 for the
-            # epilogue.
-            ops=n_valid * (8 * e + 27 * M.WINDOW * M.WINDOW + 320),
-            valid_slots=n_valid, busy_windows=n_busy, shape=(n_win, e),
+            library_ms=None, **patch_metrics_cost(*args), shape=(n_win, e),
         ))
     results["cluster_accum"] = dict(per_launch(ca_rows), max_abs_err=err_ca)
     results["patch_metrics"] = dict(per_launch(pm_rows), max_abs_err=err_pm)
@@ -288,6 +281,36 @@ def check_kernels(dev, blocks) -> dict:
         bound(r)
         log_kernel(name, r)
     return results
+
+
+def cluster_accum_cost(x, y, valid, *, cell_size, grid_w, grid_h, width, height) -> dict:
+    """Bytes and operations ``cluster_accum`` must move and do on these
+    ``(W, E)`` events: x, y and valid of every event and t of each
+    in-sensor valid event read, four ``(n_cells,)`` rows written."""
+    n_win, e = x.shape
+    n_cells = grid_w * grid_h
+    inb = int(((x >= 0) & (x < width) & (y >= 0) & (y < height) & valid).sum())
+    return dict(bytes=n_win * e * (4 + 4 + 1) + inb * 4 + n_win * n_cells * 16,
+                ops=n_win * e * 12 + n_win * n_cells * 4)
+
+
+def patch_metrics_cost(x, y, w, c, leader, x0, y0, count, cvalid, norm) -> dict:
+    """Bytes and operations ``patch_metrics`` must move and do on these
+    arguments. Bytes: the events (x, y, c int32; w, leader bool) and norm
+    of each window that holds a valid slot, cvalid of every slot,
+    x0/y0/count of each valid slot, six floats out per slot. Operations
+    per valid slot: ~8 per event of the window (offsets, compares,
+    atomics), ~25 per pixel for the Sobel, e2, sqrt and three reductions,
+    2 per pixel for the edge pass, ~320 for the epilogue."""
+    from repro_torch.core import metrics as M
+
+    n_win, e = x.shape
+    k = count.shape[-1]
+    n_valid = int(cvalid.sum())
+    n_busy = int(cvalid.any(-1).sum())
+    return dict(bytes=n_busy * (e * 14 + 4) + n_win * k * (1 + 24) + n_valid * 12,
+                ops=n_valid * (8 * e + 27 * M.WINDOW * M.WINDOW + 320),
+                valid_slots=n_valid, busy_windows=n_busy)
 
 
 def per_launch(rows: list[dict]) -> dict:
@@ -339,26 +362,36 @@ def check_window_pipeline(dev, raw_blocks, cfg) -> dict:
 
     from repro_torch.core.grid_clustering import GridConfig
     from repro_torch.data.adversarial import (
-        adversarial_batch, clustered_window, named_windows, stacked_batch,
+        ClippedGrid, adversarial_batch, clustered_window, named_windows, run_and_tie_windows,
+        stacked_batch,
     )
     from repro_torch.kernels import ops, ref
 
     c12 = dataclasses.replace(cfg, grid=GridConfig(cell_size=12))
     named = stacked_batch(list(named_windows().values()), dev)
+    big = stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(4)], dev)
+    ties = stacked_batch(run_and_tie_windows(hot_pixel_max=cfg.hot_pixel_max), dev)
     cases = sum(([(f"main path block {i}", b, cfg), (f"main path block {i}, cell 12", b, c12)]
                  for i, b in enumerate(raw_blocks)), []) + [
         ("six named windows", named, cfg),
         ("six named windows, cell 12", named, c12),
         ("adversarial", adversarial_batch(dev), cfg),
         ("adversarial, cell 12", adversarial_batch(dev), c12),
-        ("capacity 1024", stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(4)], dev), cfg),
+        ("capacity 1024", big, cfg),
+        ("capacity 1024, cell 12", big, c12),
+        ("runs and ties", ties, cfg),
+        ("runs and ties, cell 12, min_events 1", ties, dataclasses.replace(
+            cfg, grid=GridConfig(cell_size=12, min_events=1))),
+        ("runs and ties, min_events 0", ties, dataclasses.replace(cfg, grid=GridConfig(min_events=0))),
+        ("runs and ties, clipped grid", ties, dataclasses.replace(cfg, grid=ClippedGrid())),
     ]
     err = 0.0
     for name, b, c in cases:
         err = max(err, compare_fixed(
             ops.window_pipeline(b, c), ref.window_pipeline_ref(b, c), f"window_pipeline ({name})"))
     log("  window_pipeline: fields, metrics and valid-slot surfaces identical to the plain version "
-        "(main path, six named windows, adversarial, cell 16 and 12, capacity 1024)")
+        "(main path, six named windows, adversarial, capacity 1024, runs and ties; cell 16 and 12; "
+        "min_events 5, 1 and 0; a grid smaller than the sensor)")
 
     g = cfg.grid
     k = g.max_clusters
@@ -392,7 +425,7 @@ def time_window_pipeline(raw_block, cfg, kw) -> dict:
     wp_plain = cuda_ms(lambda: FX.fixed_stage_surfaces(cfg, raw_block), iters=3, warmup=1)
     # The work this block's data needs, from the plain version's masks
     # and surfaces, counted by what the function needs and not by the
-    # kernel's own loops (its pairwise and K arg-max passes do far more).
+    # kernel's own loops.
     cond = _condition(cfg, raw_block)
     inb = (cond.x >= 0) & (cond.x < g.width) & (cond.y >= 0) & (cond.y < g.height)
     n_roi = roi_filter(raw_block, cfg.roi).valid.sum(-1)  # (W,)
@@ -439,7 +472,9 @@ def check_wire_kernels(dev, scale, fleet_recs) -> dict:
     import torch
 
     from repro_torch.core.events import pack_wire, wire_tensors
-    from repro_torch.data.adversarial import adversarial_wires, dual_bounds3, entropy_frame, fleet_wire
+    from repro_torch.data.adversarial import (
+        adversarial_wires, dual_bounds3, entropy_frame, fleet_wire, overlay_wires,
+    )
     from repro_torch.kernels import grid_quantize as _gq
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import window_entropy as _we
@@ -449,18 +484,30 @@ def check_wire_kernels(dev, scale, fleet_recs) -> dict:
     cases = {"scale recording, whole wire": (pack_wire(
         scale.x, scale.y, scale.t, scale.p, dual_bounds3(scale.t), 256)[0], 256)}
     cases.update(adversarial_wires())
+    # Spill overlays beyond what the packer writes, against the plain
+    # version on the CPU (on a card an index_put keeps either of two
+    # entries on one slot).
+    on_cpu = overlay_wires()
+    cases.update(on_cpu)
     cases["16-sensor round"] = (fleet_wire(
         [(r.x, r.y, r.t, r.p, dual_bounds3(r.t[:2000])[:2]) for r in fleet_recs], 256), 256)
     err = 0.0
     timed = {}
     for name, (wire, cap) in cases.items():
         args = wire_tensors(wire, dev)
-        got, exp = ops.event_unpack(*args, cap), ref.unpack_wire_ref(*args, cap)
+        before = ops.LAUNCHES["event_unpack"]
+        got = ops.event_unpack(*args, cap)
+        require(ops.LAUNCHES["event_unpack"] == before + 1, f"event_unpack ({name}): not one launch")
+        # On the device too: every kernel the decode ran, whatever its name.
+        _, ran = kernel_device_profile(lambda: ops.event_unpack(*args, cap), ("",), iters=3)
+        require(ran == 1, f"event_unpack ({name}): {ran} kernels per decode on the device")
+        exp = ref.unpack_wire_ref(*(wire_tensors(wire, "cpu") if name in on_cpu else args), cap)
         err = max(err, equal(got[0], exp[0], f"event_unpack packed ({name})"),
                   equal(got[1], exp[1], f"event_unpack valid ({name})"))
         if name in ("scale recording, whole wire", "16-sensor round"):
             timed[name] = time_event_unpack([(*args, cap)])
-    log(f"  event_unpack: identical to the plain version on {', '.join(cases)}")
+    log(f"  event_unpack: identical to the plain version, one launch per decode, on "
+        f"{', '.join(cases)}")
     for name, r in timed.items():
         bound(r)
         log_kernel(f"event_unpack ({name})", r)
@@ -512,19 +559,37 @@ def check_wire_kernels(dev, scale, fleet_recs) -> dict:
     return results
 
 
+def time_calls(calls, kernel, plain, names, n_plain: int | None = None) -> dict:
+    """Per launch over ``calls``, each ``(args, kwargs)`` of one call of
+    the kernel's wrapper ``kernel``: the kernels alone (``names``, under
+    the profiler), the call (CUDA events), the plain version ``plain`` on
+    the first ``n_plain`` calls (all by default), and the kernels the
+    device ran per call."""
+    def replay(fn, cs=calls):
+        for a, kw in cs:
+            fn(*a, **kw)
+
+    n = len(calls)
+    iters = max(2, 20 // n)
+    ms, per_call = kernel_device_profile(lambda: replay(kernel), names, iters=iters)
+    head = calls[:n_plain] if n_plain else calls
+    return dict(
+        ms=ms / n, kernels_per_call=per_call / n,
+        call_ms=cuda_ms(lambda: replay(kernel), iters=iters, warmup=1) / n,
+        plain_ms=cuda_ms(lambda: replay(plain, head), iters=max(1, 5 // len(head)), warmup=1) / len(head),
+        library_ms=None,
+    )
+
+
 def time_event_unpack(calls) -> dict:
     """Per call of the ``event_unpack`` kernel over ``calls``, each the
-    wire tensors and the capacity as a decoder takes them: the kernels
-    alone (a gather launch, and an overlay launch where the spill lane
-    holds entries), the call, the plain version, and the bytes and
-    operations the wires need."""
+    wire tensors and the capacity as a decoder takes them: the kernel
+    alone, the call, the plain version, and the bytes and operations the
+    wires need. Requires at most one kernel on the device per decode
+    (phase 2 requires exactly one on every wire case)."""
     from repro_torch.core.events import SPILL_SENTINEL
     from repro_torch.kernels import event_unpack as _eu
     from repro_torch.kernels import ref
-
-    def replay(fn):
-        for a in calls:
-            fn(*a)
 
     n = len(calls)
     nbytes = nops = 0
@@ -539,16 +604,13 @@ def time_event_unpack(calls) -> dict:
         nbytes += int(n_events * 6.125) + 4 * s_ * (w_ + 1) + 20 * m + 17 * s_ * w_ * cap
         nops += 10 * s_ * w_ * cap
         windows.append(w_)
-    iters = max(2, 20 // n)
     shape = ((s_, w_, cap) if n == 1 else
              f"{n} decodes of (1, W, {cap}), W {min(windows)}-{max(windows)}, {sum(windows)} windows")
-    return dict(
-        ms=kernel_device_ms(lambda: replay(_eu.event_unpack),
-                            ("gather_kernel", "overlay_kernel"), iters=iters) / n,
-        call_ms=cuda_ms(lambda: replay(_eu.event_unpack), iters=iters, warmup=1) / n,
-        plain_ms=cuda_ms(lambda: replay(ref.unpack_wire_ref), iters=max(1, 5 // n), warmup=1) / n,
-        library_ms=None, bytes=nbytes / n, ops=nops / n, ops_peak=PEAK_INT32_S, shape=shape,
-    )
+    r = time_calls([(a, {}) for a in calls], _eu.event_unpack, ref.unpack_wire_ref,
+                   ("event_unpack_kernel",))
+    # The profiler may drop records over thousands of launches, never add.
+    require(r["kernels_per_call"] <= 1, f"event_unpack: {r['kernels_per_call']} kernels per decode")
+    return dict(r, bytes=nbytes / n, ops=nops / n, ops_peak=PEAK_INT32_S, shape=shape)
 
 
 def bound(r: dict) -> None:
@@ -970,8 +1032,10 @@ def check_stream(cfg, rec, scan, dev) -> tuple[dict, dict]:
 
     from repro_torch.core.pipeline import StreamingPipeline
     from repro_torch.data.evas import iter_chunks
+    from repro_torch.kernels import cluster_accum as _ca
     from repro_torch.kernels import event_unpack as _eu
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import patch_metrics as _pm
 
     chunks = list(iter_chunks(rec, CHUNK_US))
     sp = StreamingPipeline(cfg, wire="ragged", device=dev)
@@ -983,13 +1047,28 @@ def check_stream(cfg, rec, scan, dev) -> tuple[dict, dict]:
         return decode(*args)
 
     sp._wire = keep
+    # The window-core kernels' inputs in this run are kept too.
+    captured = {_ca: [], _pm: []}
+    kernel_fns = {mod: mod.__dict__[name] for mod, name in
+                  ((_ca, "cluster_accum"), (_pm, "patch_metrics"))}
+
+    def capture(mod):
+        def call(*a, **kw):
+            captured[mod].append((a, kw))
+            return kernel_fns[mod](*a, **kw)
+        return call
+
+    _ca.cluster_accum, _pm.patch_metrics = capture(_ca), capture(_pm)
     ops.reset_launches()
     parts, ms = [], []
-    for c in chunks + [None]:
-        t0 = time.perf_counter()
-        parts.append(sp.flush() if c is None else sp.feed(*c))
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    try:
+        for c in chunks + [None]:
+            t0 = time.perf_counter()
+            parts.append(sp.flush() if c is None else sp.feed(*c))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        _ca.cluster_accum, _pm.patch_metrics = kernel_fns[_ca], kernel_fns[_pm]
     counts = dict(ops.LAUNCHES)
     require(all(counts[k] > 0 for k in FLEET_KERNELS), f"stream launches {counts}")
     require(counts["event_unpack"] == len(calls), f"stream: {len(calls)} decodes, launches {counts}")
@@ -1011,7 +1090,26 @@ def check_stream(cfg, rec, scan, dev) -> tuple[dict, dict]:
     bound(row)
     log(f"  event_unpack: identical to the plain version on each of the stream's {len(calls)} wires")
     log_kernel("event_unpack (the stream's wires)", row)
-    return counts, row
+    # The window-core kernels per launch on the stream's own inputs (1-2
+    # windows a feed), the plain versions on the first 300 launches.
+    stream_rows = {}
+    for name, mod, plain, kernel_name, cost in (
+            ("cluster_accum", _ca, ref.cluster_accum_ref, "cluster_accum_kernel",
+             lambda a, kw: cluster_accum_cost(a[0], a[1], a[3], **kw)),
+            ("patch_metrics", _pm, ref.patch_metrics_ref, "patch_metrics_kernel",
+             lambda a, kw: patch_metrics_cost(*a))):
+        calls_k = captured[mod]
+        require(len(calls_k) == counts[name], f"stream: {len(calls_k)} {name} calls, launches {counts}")
+        costs = [cost(a, kw) for a, kw in calls_k]
+        r = time_calls(calls_k, getattr(mod, name), plain, (kernel_name,), n_plain=300)
+        r.update({k: sum(c[k] for c in costs) / len(costs) for k in ("bytes", "ops")})
+        windows = [a[0].shape[0] for a, _ in calls_k]
+        r["shape"] = f"{len(calls_k)} launches of (W, {calls_k[0][0][0].shape[1]}), W {min(windows)}-{max(windows)}"
+        bound(r)
+        r["launches"] = len(calls_k)
+        log_kernel(f"{name} (the stream's launches)", r)
+        stream_rows[name] = r
+    return counts, row, stream_rows
 
 
 def main() -> int:
@@ -1125,7 +1223,7 @@ def main() -> int:
 
     fixed_counts = check_fixed_scale(scale, fixed, staged, dev, times["window core"])
     launches.update({k: fixed_counts[k] for k in FIXED_KERNELS})
-    stream_counts, kernels["event_unpack"] = check_stream(cfg, scale, scan, dev)
+    stream_counts, kernels["event_unpack"], stream_rows = check_stream(cfg, scale, scan, dev)
     kernels["event_unpack"]["max_abs_err"] = max(
         kernels["event_unpack"]["max_abs_err"], phase2_err)
     launches["event_unpack"] = stream_counts["event_unpack"]
@@ -1158,6 +1256,16 @@ def main() -> int:
             row["path"] = "no path (tests only, as in the reference); launches are phase 2's"
         else:
             row["launches_on"] = LAUNCH_BASIS[name]
+            # Rule 2's ranking: launches x (alone - bound), in ms.
+            row["score_ms"] = launches[name] * (r["ms"] - r["bound_ms"])
+        if name in stream_rows:  # the same kernel per launch on the ragged stream
+            st = stream_rows[name]
+            row["stream"] = dict(
+                launches=st["launches"], ms=st["ms"], call_ms=st["call_ms"],
+                plain_ms=st["plain_ms"], bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+                score_ms=st["launches"] * (st["ms"] - st["bound_ms"]), timed_on=st["shape"],
+                launches_on=LAUNCH_BASIS["event_unpack"],
+            )
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

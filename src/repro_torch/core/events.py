@@ -577,7 +577,7 @@ def pack_wire(
 
 
 def wire_tensors(
-    wire: tuple[np.ndarray, ...], device: str | torch.device = "cpu",
+    wire: tuple[np.ndarray, ...], device: str | torch.device,
     non_blocking: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """The numpy wire ``(words, dt, pol, offsets, spill)`` as tensors on

@@ -3,6 +3,8 @@ wires and frames that the main path rarely produces but every kernel
 must get right."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -119,6 +121,53 @@ def named_windows(capacity: int = 128) -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class ClippedGrid(GridConfig):
+    """A grid narrower and shorter than the sensor: a pixel past column
+    ``cols * cell_size`` wraps into the next row's cells, and one past
+    the last row clips into the last cell, so one cell holds pixels with
+    the same in-cell offset. No pipeline config builds one; the
+    megakernel takes it (its whole-pixel sort key), and the plain
+    version computes the same clipped cells from it."""
+
+    cols: int = 30
+    rows: int = 20
+
+    @property
+    def grid_w(self) -> int:
+        return self.cols
+
+    @property
+    def grid_h(self) -> int:
+        return self.rows
+
+
+def run_and_tie_windows(seed: int = 7, e: int = 256, hot_pixel_max: int = 12) -> list:
+    """Host windows ``(x, y, t, valid)`` that stress the fixed-point
+    megakernel's runs and its slot prefix: a pixel at exactly
+    ``hot_pixel_max`` events and one at ``hot_pixel_max + 1`` beside a
+    clump; 40 cells tied at 6 events (more than K = 32); a few events in
+    few cells (fewer than K at ``min_events``); three windows of random
+    events crowded into a 60 x 40 corner (many repeats per pixel)."""
+    rng = np.random.default_rng(seed)
+    hot = hot_pixel_max
+
+    def pad(xs, ys):
+        n = len(xs)
+        z = lambda a: np.pad(np.asarray(a, np.int64), (0, e - n))  # noqa: E731
+        return z(xs), z(ys), z(rng.integers(0, 20_000, n)), np.pad(np.ones(n, bool), (0, e - n))
+
+    out = [pad(np.r_[np.full(hot, 300), np.full(hot + 1, 310), rng.integers(290, 320, 60)],
+               np.r_[np.full(hot, 200), np.full(hot + 1, 205), rng.integers(190, 215, 60)])]
+    cells = np.arange(40)
+    out.append(pad(np.repeat(40 + cells % 30 * 16, 6) + rng.integers(0, 16, 240),
+                   np.repeat(100 + cells // 30 * 32, 6) + rng.integers(0, 16, 240)))
+    out.append(pad(rng.integers(100, 140, 30), rng.integers(100, 140, 30)))
+    for _ in range(3):
+        out.append(pad(rng.integers(20, 80, e), rng.integers(20, 60, e)))
+    return out
+
+
 def stacked_batch(windows, device: str | torch.device = "cpu") -> EventBatch:
     """Host windows ``(x, y, t, valid)`` of one capacity as a ``(W, E)``
     int32 :class:`EventBatch` on ``device``."""
@@ -184,7 +233,9 @@ def adversarial_wires() -> dict:
     out-of-lane and int32-wrapped values; capacity truncation (capacity
     32 under a 200-event size cut); a three-sensor round with an idle
     sensor, empty windows, padded rows and spills behind a base offset;
-    a spill lane of sentinels only."""
+    a spill lane of sentinels only; a spill lane out of position order,
+    with a position counted from the end and one on the wire's last
+    event."""
     out = {}
     x, y, t, p = wire_stream(3, garbage=True)
     out["spill lane"] = (pack_wire(x, y, t, p, dual_bounds3(t), 256)[0], 256)
@@ -201,7 +252,47 @@ def adversarial_wires() -> dict:
     wire = list(pack_wire(*wire_stream(4), dual_bounds3(wire_stream(4)[2]), 256)[0])
     wire[4] = np.full((5, 8), SPILL_SENTINEL, np.int32)
     out["sentinel-only spill lane"] = (tuple(wire), 256)
+    # The packer's entries in reverse order, then entries at the last
+    # event's position, at one counted from the end (-n + 30 is 30) and at
+    # two more, each position once; a padding sentinel between them.
+    wire = list(out["spill lane"][0])
+    n = wire[0].shape[0]
+    real = wire[4][:, wire[4][0] != SPILL_SENTINEL]
+    extra = [q for q in (int(wire[3][0, -1]) - 1, -n + 30, 100, 2) if q % n not in set(real[0] % n)]
+    spill = np.full((5, spill_pad(real.shape[1] + len(extra) + 1)), SPILL_SENTINEL, np.int32)
+    spill[:, : real.shape[1]] = real[:, ::-1]
+    for j, q in enumerate(extra):
+        spill[:, real.shape[1] + 1 + j] = (q, 70_000 + j, -5 - j, 65_536 + j, j % 2)
+    wire[4] = spill
+    out["unsorted and negative spill positions"] = (tuple(wire), 256)
     return out
+
+
+def overlay_wires() -> dict:
+    """Named ``(wire, capacity)`` cases for the decoder's spill overlay
+    beyond what the packer writes: two entries on one slot (the later in
+    the lane wins, as an index_put on the CPU does), rows whose offsets
+    reach past the wire (clipped sources, so one entry covers several
+    slots), capacities of 40 (a partial warp) and 1,100 (two passes of a
+    CTA), and an empty wire with counts. Compare a kernel with the plain
+    version run on the CPU: on a card an index_put with two entries on
+    one slot keeps either."""
+    wire, cap = adversarial_wires()["spill lane"]
+    n = wire[0].shape[0]
+    spill = np.full((5, 16), SPILL_SENTINEL, np.int32)
+    for j, (q, *vals) in enumerate([(40, 1, 2, 3, 0), (-n + 7, 5, 6, 7, 1), (40, 9, 9, 9, 1),
+                                    (n - 1, 70, 71, 72, 1), (0, 80, 81, 82, 0), (-n - 4, 1, 1, 1, 1)]):
+        spill[:, j] = (q, *vals)
+    off = wire[3].copy()
+    off[0, 0], off[0, -1] = -5, n + 40
+    z = np.zeros(0, np.uint32)
+    return {
+        "two entries on one slot": ((*wire[:4], spill), cap),
+        "rows reaching past the wire": ((*wire[:3], off, spill), cap),
+        "capacity 40": (wire, 40),
+        "capacity 1100": ((*wire[:3], off, spill), 1100),
+        "empty wire": ((z, np.zeros(0, np.uint16), z, np.array([[0, 3, 3]], np.int32), spill), 8),
+    }
 
 
 def entropy_frame(seed: int = 0, h: int = 480, w: int = 640):

@@ -1,4 +1,4 @@
-"""The ragged-wire decode in one kernel (CUDA C++), two launches.
+"""The ragged-wire decode in one kernel launch (CUDA C++).
 
 Replaces the TPU kernel ``repro/kernels/event_unpack.py:event_unpack``
 and the decode around it (``repro/core/events.py:unpack_wire``), the
@@ -8,13 +8,14 @@ lane in; the dense ``(4, S, W, cap)`` int32 planes and the ``(S, W,
 cap)`` validity mask out.
 
 Bound on the H100: bytes, 17 written per dense slot and 6.125 read per
-wire event plus the offsets and the spill lane. Design: a gather launch
-with one thread per dense slot writes every plane once, coalesced; an
-overlay launch with one thread per spill entry then writes the exact
-int32 values of the events the packed lanes cannot hold, after a binary
-search for the window that holds each wire position. The source note in
-``csrc/event_unpack.cu`` states the wires it is exact on: every wire the
-packer writes.
+wire event plus the offsets and the spill lane; on a live feed of 1-2
+windows the launch itself is the floor. Design: one CTA per (sensor,
+window) row writes every slot of its row once, coalesced; where the
+spill lane holds entries, the CTA first scans it and each slot takes the
+exact int32 values of the last entry at its wire position. The source
+note in ``csrc/event_unpack.cu`` has the details. The wrapper is lean:
+one output buffer, no device switch when the tensors lie on the current
+device.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from repro_torch.kernels import _build
 
 _fn = None
+_DTYPES = (torch.int32, torch.int16, torch.int32, torch.int32, torch.int32)
 
 
 def _launcher():
@@ -45,11 +47,11 @@ def event_unpack(
     spill: torch.Tensor,
     capacity: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch on contiguous CUDA tensors: words ``(N,)`` int32 (the
-    uint32 bits), dt ``(N,)`` int16 (the uint16 bits), pol ``(N/32,)``
-    int32, offsets ``(S, W+1)`` int32 and spill ``(5, M)`` int32. Returns
-    packed ``(4, S, W, capacity)`` int32 and valid ``(S, W, capacity)``
-    bool."""
+    """Launch on contiguous CUDA tensors of one device: words ``(N,)``
+    int32 (the uint32 bits), dt ``(N,)`` int16 (the uint16 bits), pol
+    ``(N/32,)`` int32, offsets ``(S, W+1)`` int32 and spill ``(5, M)``
+    int32. Returns packed ``(4, S, W, capacity)`` int32 and valid ``(S,
+    W, capacity)`` bool, views of one buffer."""
     n = words.shape[0]
     if words.dim() != 1 or dt16.shape != words.shape or pol.shape != (n // 32,) or n % 32:
         raise ValueError(
@@ -61,20 +63,31 @@ def event_unpack(
             f"event_unpack takes offsets (S, W+1) and spill (5, M); got "
             f"{tuple(offsets.shape)}, {tuple(spill.shape)}"
         )
-    for a, dt in ((words, torch.int32), (dt16, torch.int16), (pol, torch.int32),
-                  (offsets, torch.int32), (spill, torch.int32)):
-        if a.device.type != "cuda" or a.dtype != dt or not a.is_contiguous():
-            raise ValueError(f"event_unpack takes contiguous CUDA {dt}, got {a.dtype} on {a.device}")
-    s, w = offsets.shape[0], offsets.shape[1] - 1
     dev = words.device
-    packed = torch.empty((4, s, w, capacity), dtype=torch.int32, device=dev)
-    valid = torch.empty((s, w, capacity), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = _launcher()(
-            words.data_ptr(), dt16.data_ptr(), pol.data_ptr(), offsets.data_ptr(),
-            spill.data_ptr(), n, spill.shape[1], s, w, capacity,
-            packed.data_ptr(), valid.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    args = (words, dt16, pol, offsets, spill)
+    for a, dt in zip(args, _DTYPES):
+        if a.dtype != dt or not a.is_cuda or a.device != dev or not a.is_contiguous():
+            raise ValueError(
+                f"event_unpack takes contiguous {dt} on one CUDA device, got {a.dtype} on {a.device}"
+            )
+    s, w = offsets.shape[0], offsets.shape[1] - 1
+    plane = s * w * capacity
+    # One allocation: the four int32 planes, then the bool mask. as_strided
+    # takes one dispatch where a slice and a reshape take two.
+    buf = torch.empty(4 * plane + (plane + 3) // 4, dtype=torch.int32, device=dev)
+    packed = buf.as_strided((4, s, w, capacity), (plane, w * capacity, capacity, 1))
+    valid = buf.view(torch.bool).as_strided((s, w, capacity), (w * capacity, capacity, 1), 16 * plane)
+    # The raw current stream: torch.cuda.current_stream() builds a Stream
+    # object, several times the cost of the launch itself.
+    index = dev.index
+    launch = lambda: _launcher()(  # noqa: E731
+        *(a.data_ptr() for a in args), n, spill.shape[1], s, w, capacity,
+        packed.data_ptr(), valid.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
+    )
+    if index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
     _build.check(err, "event_unpack")
     return packed, valid

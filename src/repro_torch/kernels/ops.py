@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
+from repro_torch.kernels import event_unpack as _eu
 from repro_torch.kernels import ref
 
 LAUNCHES = {
@@ -119,7 +120,7 @@ def window_pipeline(batch, config):
     e = batch.x.shape[-1]
     k = g.max_clusters
     if e > _wp.MAX_EVENTS:
-        raise ValueError(f"E ({e}) exceeds the pairwise block bound ({_wp.MAX_EVENTS})")
+        raise ValueError(f"E ({e}) exceeds the megakernel's bound ({_wp.MAX_EVENTS})")
     if k > _wp.MAX_SLOTS:
         raise ValueError(f"max_clusters ({k}) must be <= {_wp.MAX_SLOTS}")
     if _route(batch.x) == "cpu":
@@ -155,16 +156,13 @@ def event_unpack(
     """The ragged-wire decode: wire tensors as
     :func:`repro_torch.core.events.wire_tensors` gives them -> packed
     ``(4, S, W, capacity)`` int32 x/y/t/p planes and ``(S, W, capacity)``
-    bool validity, the dense planes bit for bit."""
+    bool validity, the dense planes bit for bit. On the card it takes
+    exactly those types, contiguous (the kernel's wrapper raises else)."""
     if _route(words) == "cpu":
         return ref.unpack_wire_ref(words, dt16, pol, offsets, spill, capacity)
-    from repro_torch.kernels import event_unpack as _eu
-
-    args = (words, dt16, pol, offsets, spill)
-    dtypes = (torch.int32, torch.int16, torch.int32, torch.int32, torch.int32)
-    packed, valid = _eu.event_unpack(
-        *(a.to(d).contiguous() for a, d in zip(args, dtypes)), capacity
-    )
+    # The decoders hand over the wire as wire_tensors types it; the kernel's
+    # wrapper checks and raises rather than converting on the hot path.
+    packed, valid = _eu.event_unpack(words, dt16, pol, offsets, spill, capacity)
     if valid.numel():  # with no slots the launcher returns before launching
         LAUNCHES["event_unpack"] += 1
     return packed, valid

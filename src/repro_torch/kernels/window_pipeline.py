@@ -9,12 +9,15 @@ and moment sums, for a whole block of windows.
 Bound on the H100, by what the function needs: about 0.005 ms of bytes
 (events in; fields, norm and valid-slot surfaces out) and 0.007 ms of
 32-bit integer work, mostly the Sobel and sums of each valid slot's
-patch, at the main path's block of 4,096 windows of 256 events. This
-first version does far more work than that (pairwise hot-pixel and
-coincidence passes, K arg-max passes). Design: one CTA per window keeps
-the window's events, its cell stats (``n_cells`` x 16 bytes) and one
-48x48 patch in shared memory, and writes only the compact integer
-outputs; the float epilogue runs after it in
+patch, at the main path's block of 4,096 windows of 256 events. Design:
+one CTA per window keeps the window's events, two sort buffers and one
+48x48 patch in shared memory. One block-wide sort of the kept events by
+(cell, pixel, index) gives the hot-pixel verdicts, coincidence counts and
+leaders from its pixel runs and the cell sums from its cell runs, with
+no pairwise pass and no cell table; one sort of the counted cells gives
+the top-K slots, since slots below ``min_events`` are constants; then
+each valid slot's patch, histogram, integer Sobel and moments. Only the
+compact integer outputs are written; the float epilogue runs after it in
 :func:`repro_torch.core.fixed_point.fixed_metric_epilogue`, shared with
 the staged path. The source note in ``csrc/window_pipeline.cu`` has the
 steps.
@@ -29,7 +32,7 @@ from repro_torch.kernels import _build
 
 WINDOW = 48  # compiled into the kernel
 BINS = 32
-MAX_EVENTS = 1024  # the pairwise passes' bound, as in the reference
+MAX_EVENTS = 1024  # the reference's contract (its pairwise block bound)
 MAX_SLOTS = 128
 CL_FIELDS = ("count", "cell_x", "cell_y", "cq_x", "cq_y", "cq_t", "x0", "y0", "valid")
 

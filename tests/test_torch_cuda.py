@@ -160,6 +160,77 @@ def test_window_pipeline_empty_block_counts_no_launch(cuda_dev):
     assert fc.count.shape == (0, cfg.grid.max_clusters) and surf["norm_i"].shape == (0,)
 
 
+def _assert_fixed_equal(got, want):
+    (fc, mets, surf), (rfc, rmets, rsurf) = got, want
+    for f in fc._fields:
+        assert torch.equal(getattr(fc, f), getattr(rfc, f)), f
+    for m in mets:
+        assert torch.equal(mets[m].view(torch.int32), rmets[m].view(torch.int32)), m
+    assert torch.equal(surf["norm_i"], rsurf["norm_i"])
+    for k in surf:
+        if k != "norm_i":
+            assert torch.equal(surf[k][fc.valid], rsurf[k][fc.valid]), k
+
+
+def _wide_windows(width, height, scale_x, scale_y, seed=5):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        n = 200
+        x = rng.integers(0, 3000, n) * scale_x % width
+        y = rng.integers(0, 2000, n) * scale_y % height
+        out.append((np.pad(x, (0, 56)), np.pad(y, (0, 56)), np.pad(np.arange(n), (0, 56)),
+                    np.pad(np.ones(n, bool), (0, 56))))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "cell 16", "cell 12, min_events 1", "cell 16, min_events 0", "cell 7, hot_pixel_max 0",
+    "cell 16, hot_pixel_max 1000", "64-bit keys", "128-bit keys", "clipped grid"])
+def test_window_pipeline_kernel_runs_ties_and_key_widths(cuda_dev, case):
+    """The redesigned megakernel against its plain version on windows
+    that stress its pixel and cell runs and its slot prefix
+    (``run_and_tie_windows``), at other cells, thresholds and hot-pixel
+    limits, with the 64- and 128-bit sort keys of wide sensors, and on a
+    grid smaller than the sensor (whole-pixel keys)."""
+    import dataclasses
+
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.adversarial import run_and_tie_windows, stacked_batch
+
+    cfg = PipelineConfig(numerics="fixed", metrics_impl="megakernel")
+    grid = dict(cell_size=16)
+    if case == "clipped grid":  # a grid smaller than the sensor: whole-pixel keys
+        from repro_torch.data.adversarial import ClippedGrid
+
+        cfg = dataclasses.replace(cfg, grid=ClippedGrid())
+        b = stacked_batch(run_and_tie_windows(), cuda_dev)
+        _assert_fixed_equal(ops.window_pipeline(b, cfg), ref.window_pipeline_ref(b, cfg))
+        return
+    if case == "64-bit keys":  # 2,560 x 30 cells of 16 px: 17 + 8 + 8 key bits
+        grid, roi, wins = dict(width=40960), (0, 0, 40960, 480), _wide_windows(40960, 480, 64, 1)
+    elif case == "128-bit keys":  # cells of 2^28 px: 2 + 56 + 8 key bits
+        grid = dict(width=2**29, height=2**29, cell_size=2**28, min_events=1, max_clusters=4)
+        roi, wins = (0, 0, 2**29, 2**29), _wide_windows(2**29, 2**29, 9, 5)
+    else:
+        for part in case.split(", "):
+            key, val = part.rsplit(" ", 1)
+            if key == "cell":
+                grid["cell_size"] = int(val)
+            elif key == "min_events":
+                grid["min_events"] = int(val)
+            else:
+                cfg = dataclasses.replace(cfg, hot_pixel_max=int(val))
+        roi, wins = cfg.roi, run_and_tie_windows()
+    cfg = dataclasses.replace(cfg, roi=roi, grid=GridConfig(**grid))
+    b = stacked_batch(wins, cuda_dev)
+    before = ops.LAUNCHES["window_pipeline"]
+    got = ops.window_pipeline(b, cfg)
+    assert ops.LAUNCHES["window_pipeline"] == before + 1
+    _assert_fixed_equal(got, ref.window_pipeline_ref(b, cfg))
+
+
 def _wire_on(wire, dev):
     from repro_torch.core.events import wire_tensors
 
@@ -181,6 +252,38 @@ def test_event_unpack_kernel_matches_plain(cuda_dev):
         rp, rv = ref.unpack_wire_ref(*args, cap)
         assert torch.equal(packed, rp), name
         assert torch.equal(valid, rv), name
+
+
+@pytest.mark.cuda
+def test_event_unpack_kernel_overlay_one_launch_per_decode(cuda_dev):
+    """Every wire case, spills out of position order, two entries on one
+    slot and rows reaching past the wire included: one launch per decode,
+    equal to the plain version run on the CPU (where of two entries on
+    one slot the later wins)."""
+    from repro_torch.data.adversarial import adversarial_wires, overlay_wires
+
+    for name, (wire, cap) in {**adversarial_wires(), **overlay_wires()}.items():
+        before = ops.LAUNCHES["event_unpack"]
+        packed, valid = ops.event_unpack(*_wire_on(wire, cuda_dev), cap)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["event_unpack"] == before + 1, name
+        rp, rv = ref.unpack_wire_ref(*_wire_on(wire, "cpu"), cap)
+        assert torch.equal(packed.cpu(), rp), name
+        assert torch.equal(valid.cpu(), rv), name
+
+
+@pytest.mark.cuda
+def test_event_unpack_empty_wire_launches_nothing(cuda_dev):
+    from repro_torch.core.events import SPILL_SENTINEL
+
+    z = np.zeros(32, np.uint32)
+    spill = np.full((5, 8), SPILL_SENTINEL, np.int32)
+    for offsets, cap in ((np.zeros((3, 1), np.int32), 256), (np.zeros((1, 4), np.int32), 0)):
+        before = ops.LAUNCHES["event_unpack"]
+        packed, valid = ops.event_unpack(*_wire_on((z, z.astype(np.uint16), z[:1], offsets, spill), cuda_dev), cap)
+        assert ops.LAUNCHES["event_unpack"] == before
+        s, w = offsets.shape[0], offsets.shape[1] - 1
+        assert packed.shape == (4, s, w, cap) and valid.shape == (s, w, cap)
 
 
 @pytest.mark.cuda

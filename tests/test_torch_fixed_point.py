@@ -31,7 +31,9 @@ from repro_torch.core import fixed_point as TFX
 from repro_torch.core import pipeline as TP
 from repro_torch.core.pipeline.window_core import _condition as t_condition
 from repro_torch.core.tracking import confirmed as t_confirmed
-from repro_torch.data.adversarial import clustered_window, named_windows, stacked_batch
+from repro_torch.data.adversarial import (
+    clustered_window, named_windows, run_and_tie_windows, stacked_batch,
+)
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
@@ -320,3 +322,223 @@ def test_empty_recording(route):
     assert not bool(r.final_tracks.active.any())
     s = TP.evaluate_detection(empty, cfg, device="cpu")
     assert (s.tp, s.fp, s.fn, s.tn) == (0, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The window_pipeline kernel's algorithm (csrc/window_pipeline.cu), modelled
+# in numpy: one sort of the kept events by (cell, pixel, index), pixel runs
+# for the hot verdict, c and leaders, cell runs for the sums, and the
+# counted cells ranked as a prefix of top_k's order. The kernel runs only
+# on a card; its logic is held here against the plain version and the JAX
+# package's plain route.
+# ---------------------------------------------------------------------------
+
+def _wrap32(v):
+    return (int(v) + 2**31) % 2**32 - 2**31
+
+
+def _rdiv(num, den):  # round half to even, floor semantics
+    q, r = divmod(num, den)
+    return q + (1 if 2 * r > den or (2 * r == den and q & 1) else 0)
+
+
+def _q8(s, den):
+    q = s // den
+    return q * 256 + _rdiv((s - q * den) * 256, den)
+
+
+def _k4_model(batch, cfg):
+    """(fields (W, 9, K), norm (W,), surf (W, K, 37)) of the kernel's
+    algorithm on ``(W, E)`` host planes."""
+    g = cfg.grid
+    cs, k, n_cells = g.cell_size, g.max_clusters, g.n_cells
+    x, y, t = (np.asarray(a).astype(np.int64) for a in batch[:3])
+    v = np.asarray(batch.valid)
+    n_win, e = x.shape
+    in_cell = g.grid_w * cs >= g.width and g.grid_h * cs >= g.height
+    ebits = max(e - 1, 0).bit_length()
+    obits = ((cs * cs if in_cell else g.width * g.height) - 1).bit_length()
+    assert n_cells.bit_length() + obits + ebits < 128
+    rx0, ry0, rx1, ry1 = cfg.roi
+    fields = np.zeros((n_win, 9, k), np.int64)
+    norm = np.zeros(n_win, np.int64)
+    surf = np.zeros((n_win, k, 37), np.int64)
+    for wi in range(n_win):
+        xs, ys, ts = x[wi], y[wi], t[wi]
+        kept = (v[wi] & (xs >= rx0) & (xs < rx1) & (ys >= ry0) & (ys < ry1)
+                & (xs >= 0) & (xs < g.width) & (ys >= 0) & (ys < g.height))
+        keys = []
+        for i in np.flatnonzero(kept):
+            cx, cy = int(xs[i]) // cs, int(ys[i]) // cs
+            cell = min(cy * g.grid_w + cx, n_cells - 1)
+            pix = (int(ys[i]) - cy * cs) * cs + int(xs[i]) - cx * cs if in_cell else int(ys[i]) * g.width + int(xs[i])
+            keys.append((cell << (obits + ebits)) | (pix << ebits) | int(i))
+        keys.sort()
+        # Pixel runs: hot verdict, c, leader.
+        c = np.zeros(e, np.int64)
+        lead = np.zeros(e, bool)
+        j = 0
+        while j < len(keys):
+            r = 1
+            while j + r < len(keys) and keys[j + r] >> ebits == keys[j] >> ebits:
+                r += 1
+            if r <= cfg.hot_pixel_max:
+                for q in range(j, j + r):
+                    c[keys[q] & ((1 << ebits) - 1)] = r
+                lead[keys[j] & ((1 << ebits) - 1)] = True
+            j += r
+        nrm = max(int(c.max(initial=0)), 1)
+        norm[wi] = nrm
+        # Cell runs: exact int32 sums of the w events.
+        runs = []  # (cell, count, sum x, sum y, sum t), in cell order
+        for key in keys:
+            cell, i = key >> (obits + ebits), key & ((1 << ebits) - 1)
+            if not runs or runs[-1][0] != cell:
+                runs.append([cell, 0, 0, 0, 0])
+            if c[i]:
+                runs[-1][1:] = [runs[-1][1] + 1, runs[-1][2] + int(xs[i]),
+                                runs[-1][3] + int(ys[i]), runs[-1][4] + int(ts[i])]
+        # Top-K: the counted cells by (count desc, cell asc), then with
+        # min_events <= 0 the cells with no counted event, lowest first.
+        cand = sorted((e - r[1], rank) for rank, r in enumerate(runs) if r[1] >= max(g.min_events, 1))
+        slots = [runs[rank] for _, rank in cand[:k]]
+        if g.min_events <= 0:
+            counted = {r[0] for r in runs if r[1] > 0}
+            empty = (cl for cl in range(n_cells) if cl not in counted)
+            slots += [[next(empty), 0, 0, 0, 0] for _ in range(k - len(slots))]
+        for s in range(k):
+            ok = s < len(slots)
+            cell, n, sx, sy, st = (slots[s][0], *(_wrap32(a) for a in slots[s][1:])) if ok else (-1, 0, 0, 0, 0)
+            den = max(n, 1)
+            ox, oy = (_rdiv(sx, den), _rdiv(sy, den)) if ok else (-1, -1)
+            x0 = min(max(ox - 24, 0), g.width - 48)
+            y0 = min(max(oy - 24, 0), g.height - 48)
+            fields[wi, :, s] = (n, cell % g.grid_w if ok else -1, cell // g.grid_w if ok else -1,
+                                _q8(sx, den) if ok else -256, _q8(sy, den) if ok else -256,
+                                _q8(st, den) if ok else -256, x0, y0, ok)
+            if not ok:
+                continue
+            # The slot's patch (zero border), leader histogram and moments.
+            patch = np.zeros((50, 50), np.int64)
+            hist = np.zeros(32, np.int64)
+            s2 = occ = 0
+            for i in np.flatnonzero(c):
+                rx, ry = int(xs[i]) - x0, int(ys[i]) - y0
+                if 0 <= rx < 48 and 0 <= ry < 48:
+                    patch[ry + 1, rx + 1] += 1
+                    if lead[i]:
+                        occ += 1
+                        s2 += int(c[i]) ** 2
+                        hist[min(int(c[i]) * 32 // nrm, 31)] += 1
+            h = patch[:, 2:] - patch[:, :-2]
+            sm = patch[:, :-2] + 2 * patch[:, 1:-1] + patch[:, 2:]
+            gx = h[:-2] + 2 * h[1:-1] + h[2:]
+            gy = sm[2:] - sm[:-2]
+            g2 = gx * gx + gy * gy
+            hist[0] += 48 * 48 - occ
+            surf[wi, s] = (*hist, patch.sum(), s2, sum(math.isqrt(int(a)) for a in g2.ravel()),
+                           g2.sum(), int((16 * g2 > g2.max()).sum()))
+    return fields, norm, surf
+
+
+def _k4_case(name):
+    if name == "named":
+        return stacked_batch(list(named_windows().values()))
+    if name == "adversarial":
+        from repro_torch.data.adversarial import adversarial_batch
+
+        return adversarial_batch("cpu")
+    if name == "E=1024":
+        return stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(2)])
+    return stacked_batch(run_and_tie_windows(hot_pixel_max=J_FIXED.hot_pixel_max))
+
+
+K4_CASES = [(case, cs, me) for case in ("named", "adversarial", "runs and ties", "E=1024")
+            for cs in (16, 12) for me in (5,)] + [("runs and ties", cs, me) for cs in (16, 12) for me in (1, 0)]
+
+
+@pytest.mark.parametrize("case,cell_size,min_events", K4_CASES)
+def test_window_pipeline_algorithm_matches_plain_and_reference(case, cell_size, min_events):
+    """The kernel's run-based conditioning and prefix top-K, in numpy,
+    equal the plain version (every field, the normalizer, valid-slot
+    surfaces) and the JAX package's plain route, window by window."""
+    jcfg = dataclasses.replace(J_FIXED, grid=dataclasses.replace(
+        J_FIXED.grid, cell_size=cell_size, min_events=min_events))
+    cfg = _tcfg(jcfg)
+    b = _k4_case(case)
+    fields, norm, surf = _k4_model(b, cfg)
+    fc, _, rs = ref.window_pipeline_ref(b, cfg)
+    for r, f in enumerate(("count", "cell_x", "cell_y", "cq_x", "cq_y", "cq_t", "x0", "y0", "valid")):
+        _eq(fields[:, r], getattr(fc, f).numpy().astype(np.int64), f)
+    _eq(norm, rs["norm_i"].numpy(), "norm")
+    val = fc.valid.numpy()
+    _eq(surf[..., :32][val], rs["hist"].numpy()[val], "hist")
+    for i, f in enumerate(TFX.SURF_FIELDS):
+        _eq(surf[..., 32 + i][val], rs[f].numpy()[val], f)
+    assert (surf[~val] == 0).all()
+
+    # The JAX package's plain route: its fixed stage and surfaces.
+    jb = _jbatch([tuple(np.asarray(a[w]) for a in (b.x, b.y, b.t, b.valid)) for w in range(b.x.shape[0])])
+    stage = jax.jit(jax.vmap(lambda one: JFX.fixed_window_stage(jcfg, one)))
+    jfc, _ = stage(jb)
+    for r, f in enumerate(("count", "cell_x", "cell_y", "cq_x", "cq_y", "cq_t", "x0", "y0", "valid")):
+        _eq(fields[:, r], np.asarray(getattr(jfc, f)).astype(np.int64), f"jax {f}")
+    jsurf = jax.jit(jax.vmap(lambda one, x0, y0: JFX.fixed_metric_surfaces(
+        j_condition(jcfg, one), x0, y0, 640, 480)))(jb, jfc.x0, jfc.y0)
+    _eq(norm, np.asarray(jsurf["norm_i"]), "jax norm")
+    _eq(surf[..., :32][val], np.asarray(jsurf["hist"])[val], "jax hist")
+    for i, f in enumerate(TFX.SURF_FIELDS):
+        _eq(surf[..., 32 + i][val], np.asarray(jsurf[f])[val], f"jax {f}")
+
+
+@pytest.mark.parametrize("grid", [dict(), dict(cell_size=12, cols=40, rows=30, min_events=1)],
+                         ids=["cell 16, 30 x 20 cells", "cell 12, 40 x 30 cells"])
+def test_window_pipeline_algorithm_on_a_clipped_grid(grid):
+    """On a grid smaller than the sensor, where the kernel keys pixels by
+    their whole index, the model equals the plain version, which computes
+    the same clipped cells (the JAX package takes no such grid)."""
+    from repro_torch.data.adversarial import ClippedGrid, adversarial_batch
+
+    cfg = dataclasses.replace(_tcfg(J_FIXED), grid=ClippedGrid(**grid))
+    for b in (adversarial_batch("cpu"), stacked_batch(run_and_tie_windows())):
+        fields, norm, surf = _k4_model(b, cfg)
+        fc, _, rs = ref.window_pipeline_ref(b, cfg)
+        for r, f in enumerate(("count", "cell_x", "cell_y", "cq_x", "cq_y", "cq_t", "x0", "y0", "valid")):
+            _eq(fields[:, r], getattr(fc, f).numpy().astype(np.int64), f)
+        _eq(norm, rs["norm_i"].numpy(), "norm")
+        val = fc.valid.numpy()
+        for i, f in enumerate(TFX.SURF_FIELDS):
+            _eq(surf[..., 32 + i][val], rs[f].numpy()[val], f)
+
+
+def test_invalid_slot_outputs_are_constants():
+    """A slot whose count is below min_events outputs count 0, cells -1,
+    cq_* -256 and the origin clip(-1 - 24), whatever cell top_k chose for
+    it and whatever that cell's sums: so valid slots form a prefix of the
+    order and the kernel ranks only the counted cells. Held in the port
+    and in the JAX reference."""
+    rng = np.random.default_rng(3)
+    g = J_FIXED.grid
+    tg = _tcfg(J_FIXED).grid
+    count = rng.integers(0, g.min_events, (4, g.n_cells)).astype(np.int32)
+    count[:, rng.integers(0, g.n_cells, 10)] = g.min_events + 3
+    outs = []
+    for shuffle in range(3):  # other low cells, other sums, other tie orders
+        c = count.copy()
+        low = c < g.min_events
+        c[low] = rng.permutation(c[low])
+        sums = [rng.integers(0, 2**20, c.shape).astype(np.int32) for _ in range(3)]
+        jfc = JFX.clusters_fixed_from_stats(jnp.asarray(c[0]), *(jnp.asarray(a[0]) for a in sums), g)
+        tfc = TFX.clusters_fixed_from_stats(torch.as_tensor(c), *(torch.as_tensor(a) for a in sums), tg)
+        for f in tfc._fields:
+            _eq(getattr(tfc, f)[0].numpy(), getattr(jfc, f), f)
+        bad = ~tfc.valid
+        assert bad.any() and not bad[:, :10].any()
+        x0 = min(max(-1 - 24, 0), g.width - 48)
+        want = dict(count=0, cell_x=-1, cell_y=-1, cq_x=-256, cq_y=-256, cq_t=-256, x0=x0, y0=x0)
+        for f, val in want.items():
+            assert (getattr(tfc, f)[bad] == val).all(), f
+        outs.append({f: getattr(tfc, f)[bad] for f in want})
+    for o in outs[1:]:
+        for f in o:
+            assert torch.equal(o[f], outs[0][f]), f

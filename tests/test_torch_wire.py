@@ -146,10 +146,10 @@ def test_unpack_wire_equals_reference(case, kernel_route):
     wire, cap = _wire_cases()[case]
     impl = jops.event_unpack_call if kernel_route else None
     jp, jv = JE.unpack_wire(*(jnp.asarray(a) for a in wire), cap, unpack_impl=impl)
-    tp, tv = ops.event_unpack(*TE.wire_tensors(wire), cap)
+    tp, tv = ops.event_unpack(*TE.wire_tensors(wire, "cpu"), cap)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    rp, rv = ref.unpack_wire_ref(*TE.wire_tensors(wire), cap)
+    rp, rv = ref.unpack_wire_ref(*TE.wire_tensors(wire, "cpu"), cap)
     assert torch.equal(rp, tp) and torch.equal(rv, tv)
 
 
@@ -158,7 +158,7 @@ def test_unpack_wire_rebuilds_dense_planes(garbage):
     x, y, t, p = AD.wire_stream(5, garbage=garbage)
     b3 = AD.dual_bounds3(t)
     wire, starts, stops, t_start, overflow = TE.pack_wire(x, y, t, p, b3, 256)
-    packed, valid = TE.unpack_wire(*TE.wire_tensors(wire), 256)
+    packed, valid = TE.unpack_wire(*TE.wire_tensors(wire, "cpu"), 256)
     dense = TE.pack_bounds(x, y, t, p, b3, 256, device="cpu")
     for lane, plane in zip(packed[:, 0], dense.batch[:4]):
         assert torch.equal(lane, plane)
@@ -179,9 +179,61 @@ def test_unpack_wire_spill_positions_like_a_drop_scatter():
     spill[:, 2] = (-n - 1, 31, 32, 33, 1)  # dropped
     w = (*wire[:4], spill)
     jp, jv = JE.unpack_wire(*(jnp.asarray(a) for a in w), cap)
-    tp, tv = TE.unpack_wire(*TE.wire_tensors(w), cap)
+    tp, tv = TE.unpack_wire(*TE.wire_tensors(w, "cpu"), cap)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     assert tp[0, 0, 0, 3] == 11
+
+
+# ---------------------------------------------------------------------------
+# The event_unpack kernel's algorithm (csrc/event_unpack.cu), modelled in
+# numpy: each (sensor, window) row gathers its slots from the wire and
+# overlays, per slot, the last spill entry whose position is the slot's
+# clipped source. The kernel runs only on a card; its logic is held here
+# against the plain decoder.
+# ---------------------------------------------------------------------------
+
+def _k5_model(wire, cap):
+    words, dt16, pol, offsets, spill = (np.asarray(a) for a in wire)
+    n, m = words.shape[0], spill.shape[1]
+    s_, w_ = offsets.shape[0], offsets.shape[1] - 1
+    packed = np.zeros((4, s_, w_, cap), np.int64)
+    valid = np.zeros((s_, w_, cap), bool)
+    pos = spill[0].astype(np.int64)
+    pos = np.where(pos < 0, pos + n, pos)
+    for s in range(s_):
+        for w in range(w_):
+            start = int(offsets[s, w])
+            count = int(offsets[s, w + 1]) - start
+            for j in range(min(max(count, 0), cap)):
+                valid[s, w, j] = True
+                if n == 0:
+                    continue
+                src = min(max(start + j, 0), n - 1)
+                hits = np.flatnonzero((pos == src) & (pos >= 0) & (pos < n))
+                if len(hits):  # one CTA's atomic max over the lane indices
+                    packed[:, s, w, j] = spill[1:, hits.max()]
+                else:
+                    word = int(words[src])
+                    packed[:, s, w, j] = (word & 0xFFFF, word >> 16, int(dt16[src]),
+                                          (int(pol[src >> 5]) >> (src & 31)) & 1)
+    return packed, valid
+
+
+def _k5_cases():
+    return {**AD.adversarial_wires(), **AD.overlay_wires()}
+
+
+@pytest.mark.parametrize("case", list(_k5_cases()))
+def test_event_unpack_algorithm_matches_plain(case):
+    """The kernel's per-row gather and overlay equal the plain decoder on
+    every wire case, spills out of position order, two entries on one
+    slot (the later in the lane wins, as the plain version's index_put
+    does on the CPU) and rows reaching past the wire included."""
+    wire, cap = _k5_cases()[case]
+    packed, valid = _k5_model(wire, cap)
+    rp, rv = ref.unpack_wire_ref(*TE.wire_tensors(wire, "cpu"), cap)
+    np.testing.assert_array_equal(packed, rp.numpy())
+    np.testing.assert_array_equal(valid, rv.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +274,7 @@ def test_window_entropy_plain_equals_reference(empty):
 def test_cpu_routes_launch_no_kernel():
     ops.reset_launches()
     wire, cap = AD.adversarial_wires()["spill lane"]
-    ops.event_unpack(*TE.wire_tensors(wire), cap)
+    ops.event_unpack(*TE.wire_tensors(wire, "cpu"), cap)
     ops.grid_quantize_packed(torch.zeros(5, dtype=torch.int32))
     frame, cx, cy = AD.entropy_frame()
     ops.window_entropy(*(torch.from_numpy(a) for a in (frame, cx, cy)))
