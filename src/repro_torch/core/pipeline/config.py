@@ -2,13 +2,15 @@
 
 The same fields and defaults as ``repro.core.pipeline.config``:
 
-* ``use_kernels`` routes quantization + cluster accumulation through
-  ``ops.cluster_accum`` (the CUDA kernel on the card), else the tensor
-  scatter :func:`cell_histogram`;
-* ``metrics_impl``: ``"kernel"`` routes the six metrics through
-  ``ops.patch_metrics`` (the CUDA kernel on the card); ``"event"`` through
-  :func:`cluster_metrics_events`; ``"frame"`` (the frame oracle) is not
-  ported yet;
+* ``use_kernels`` routes the clustering stage (quantization, cluster
+  accumulation and the top-K clusters) through ``ops.cluster_accum_topk``
+  (one launch of the ``cluster_accum`` kernel on the card), else the
+  tensor scatter :func:`cell_histogram` and ``clusters_from_histogram``;
+  :func:`_histogram_fn` gives the cell rows of either route;
+* ``metrics_impl``: ``"kernel"`` routes the metrics stage through
+  ``ops.patch_metrics`` (one launch of its CUDA kernel on the card);
+  ``"event"`` through :func:`cluster_metrics_events`; ``"frame"`` (the
+  frame oracle) is not ported yet;
 * ``scan_chunk`` is the reference's scheduling knob for its atlas event
   core, which this port does not have yet; results never depend on it;
 * ``numerics``: ``"float"`` (default) or ``"fixed"``, the integer

@@ -4,7 +4,9 @@ The port of ``repro.core.pipeline.window_core``'s ``_condition``,
 ``_cluster`` and ``_window_core``, written over a window axis: the stages
 of one window do not depend on another window's, so each runs over a
 whole ``(W, E)`` block of windows at once, and each kernel launches once
-per block, not once per window. Each stage runs inside a
+per block, not once per window: on the float kernel route
+(``use_kernels=True, metrics_impl="kernel"``) the clustering and the
+metrics stage are one launch each. Each stage runs inside a
 ``torch.profiler.record_function`` range named after it, so a profile
 of any entry point splits its time by stage; the fixed datapath's
 megakernel runs inside one range, ``"fixed window core"``.
@@ -30,7 +32,15 @@ def _condition(config: PipelineConfig, batch: EventBatch) -> EventBatch:
 def _cluster(
     config: PipelineConfig, hist_fn: Callable[[EventBatch], tuple], batch: EventBatch
 ) -> Clusters:
-    clusters = clusters_from_histogram(*hist_fn(batch), config.grid)
+    """Top-K clusters of ``(W, E)`` windows. Under ``use_kernels`` the
+    whole stage is one kernel launch (``ops.cluster_accum_topk``); else
+    ``hist_fn``'s cell rows, then :func:`clusters_from_histogram`."""
+    if config.use_kernels:
+        from repro_torch.kernels import ops as kops
+
+        clusters = kops.cluster_accum_topk(batch.x, batch.y, batch.t, batch.valid, config.grid)
+    else:
+        clusters = clusters_from_histogram(*hist_fn(batch), config.grid)
     if config.merge_neighbors:
         clusters = merge_adjacent(clusters, config.grid)
     return clusters

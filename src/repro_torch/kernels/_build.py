@@ -2,11 +2,12 @@
 
 Every ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``: no PyTorch
-headers, so a build takes seconds, and no ``ninja``. All sources are
+headers, so a build takes seconds, and no ``ninja``. The ``csrc/*.cuh``
+headers hold device code that several sources include. All sources are
 compiled in parallel at first use, into ``build/repro_torch/<hash>/``
-under the checkout, where ``<hash>`` covers the sources and the flags, so
-an edited source builds anew and an unchanged one is reused. Nothing is
-built when a module is imported.
+under the checkout, where ``<hash>`` covers the sources, the headers and
+the flags, so an edited file builds anew and an unchanged one is
+reused. Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,6 +50,8 @@ def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -88,6 +92,20 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all()[name]
         _libs[name] = ctypes.CDLL(str(path))
     return _libs[name]
+
+
+def launch_on(index: int, launch: Callable[[int], int]) -> int:
+    """Call ``launch(stream)`` with the raw current stream of CUDA device
+    ``index`` (``torch.cuda.current_stream()`` builds a Stream object,
+    several times the cost of a launch), that device made current only if
+    it is not already. Returns what ``launch`` returns."""
+    import torch
+
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(index):
+        return launch(stream)
 
 
 def check(err: int, name: str) -> None:

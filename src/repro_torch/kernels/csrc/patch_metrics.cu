@@ -1,238 +1,466 @@
-// Fused event -> 48x48 count patch + six cluster metrics.
+// The metrics stage in one launch per block of windows: from each window's
+// conditioned events and its K cluster slots to the six metrics of every
+// slot.
 //
 // Replaces the TPU kernel repro/kernels/patch_metrics.py:patch_metrics
 // (one grid step per cluster slot; the patch scatter and the histogram as
-// one-hot MXU matmuls). Here one CTA owns one (window, slot) pair of a
-// block of windows:
+// one-hot MXU matmuls) and the event-space preprocessing the port ran in
+// torch before it (core/metrics.py:event_normalizer, a pairwise (E, E)
+// coincidence pass, and window_origin).
 //
-//   1. scatter the window's weighted in-patch events into a 48x48 int32
-//      patch in shared memory, and each in-patch leader event into a
-//      32-bin int32 histogram (bin = trunc(c / norm * 32)), with
-//      shared-memory atomics; integer counts are exact in any order;
-//   2. Sobel over the 2304 pixels, per pixel
-//      e2 = (gx*gx + gy*gy) / (norm*norm) + 1e-12 in round-to-nearest
-//      steps (no fused multiply-add, so e2 is the reference's value to
-//      the bit), with block reductions of sum(sqrt(e2)), sum(e2), max(e2)
-//      and the integer moments sum(c), sum(c*c);
-//   3. the edge count against (0.25 * max(sqrt(max e2), 1e-3))^2;
-//   4. one thread evaluates the six metrics as the reference's
-//      repro/core/metrics.py:_exact_cluster_metrics does.
+// Grid: one CTA of 256 threads per window, the window's valid slots one
+// after another in it. A window with no valid slot writes zeros and
+// exits, so no CTA is spent on an invalid slot; a block of 4,096 windows
+// (the scan's) is 4,096 CTAs, and a stream feed of 1-2 windows holds 2-4
+// valid slots, about a microsecond of work each, near the launch floor.
+// A thread-block cluster per window would spread a window's slots over
+// SMs, at the cost of a second copy of the events per CTA; not needed at
+// these counts. Per window:
 //
-// Invalid slots write zeros and do no work. Built without fast math, so
-// division and sqrt are IEEE; log2f is within 1-2 ulp of libm, and the
-// float sums of step 2 run in another order than on the host: those two
-// are why the entropies and contrast carry a tolerance in the tests.
+//   1. slots: validity, and each valid slot's patch origin
+//      x0 = clip(rint(cx) - 24, 0, width - 48), rint rounding half to even
+//      (__float2int_rn) as torch.round and jnp.round do; likewise y0.
+//   2. load: x and y of every event into shared memory; the key (pixel,
+//      event index) of each w event (valid and in-sensor) into a sort
+//      buffer. An out-of-sensor event is never a w event and never shares
+//      a pixel with one, so dropping it changes no count.
+//   3. one block-wide bitonic sort of the keys (32 bits at every
+//      configuration of the repo: 19 pixel bits at 640 x 480 plus at most
+//      10 index bits; 64 bits for larger sensors). Pixel runs replace the
+//      pairwise pass: every event of a run of length r has c = r, the
+//      run's first (lowest index) event leads, norm = max(1, max c). Each
+//      leader's bin trunc(c / norm * 32) is taken once, in float32 as the
+//      reference does.
+//   4. per valid slot: the 48x48 int32 patch (zero border, so the Sobel
+//      reads need no bounds test) and the 32-bin leader histogram by
+//      shared-memory atomics, reading the events from shared memory; then
+//      each thread takes 9 pixels p = tid + 256 j: the Sobel in integers
+//      (exact: |gx|, |gy| <= 2 * 1024, so gx*gx + gy*gy < 2^24 is the
+//      float32 value the reference computes), e2 = g2 / norm^2 + 1e-12
+//      and sqrt(e2) in round-to-nearest steps (no fused multiply-add, so
+//      e2 is the reference's value to the bit; g2 = 0 gives e2 = 1e-12
+//      exactly, and its square root is taken once), the e2 values kept in
+//      registers for the edge test; block reductions of sum(sqrt(e2)),
+//      sum(e2), max(e2) and the integer moments sum(c), sum(c*c);
+//   5. the edge count against (0.25 * max(sqrt(max e2), 1e-3))^2; warp 0
+//      takes the 32 histogram bins one a lane, and its lane 0 evaluates
+//      the six metrics as the reference's
+//      repro/core/metrics.py:_exact_cluster_metrics does. The slots of a
+//      window run one after another, so a slot's serial tail is on the
+//      window's critical path: the bins are summed by shuffles, not by
+//      one thread's loop.
+//
+// The float sums of step 4 run per thread over j, then by warp
+// shuffles, then over the warps in order; the entropy terms of step 5 by
+// shuffles over the 32 bins. Built without fast math, so division and
+// sqrt are IEEE; log2f is within 1-2 ulp of libm, and the float sums run
+// in another order than on the host: those two are why the entropies and
+// contrast carry a tolerance in the tests (tests/test_torch_kernels.py
+// models this order in numpy and holds it to that tolerance).
+//
+// What bounds it on the H100: bytes. It reads x, y and valid of the
+// events of each window that holds a valid slot, the valid flag of every
+// slot and the centroids and count of each valid slot, and writes 24
+// bytes per slot. The operations per valid slot (the 2,304-pixel Sobel
+// and its reductions, about 25 each) are a small fraction of the float32
+// rate at the scan's 1,720 valid slots per 4,096 windows.
+//
+// Output: (6, W, K) float32, the metrics in METRIC_NAMES order, zeros for
+// invalid slots.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sort.cuh"
+
 namespace {
 
 constexpr int kWin = 48;
+constexpr int kPad = kWin + 2;  // the patch with a zero border
 constexpr int kPix = kWin * kWin;
+constexpr int kPixPerThread = kPix / kThreads;  // 9
 constexpr int kBins = 32;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMetrics = 6;
+constexpr int kMaxEvents = 1024;
+constexpr int kMaxSlots = 128;
 constexpr float kEdgeThreshold = 0.25f;
 constexpr float kTwoPiE = 17.079468445347132f;  // 2 * pi * e
+// Info word of an event: w (bit 0), leader (bit 1), the leader's bin << 2.
+constexpr int kW = 1;
+constexpr int kLead = 2;
+
+static_assert(kPix % kThreads == 0, "each thread takes whole pixels");
+static_assert(kMaxSlots <= kThreads, "one thread per slot in step 1");
+
+struct Params {
+  int n_events, n_slots;
+  int width, height;
+  int ebits;  // key = pixel << ebits | event index
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__device__ __forceinline__ long long warp_sum_ll(long long v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ float pix(const int* patch, int r, int q) {
-  return (r >= 0 && r < kWin && q >= 0 && q < kWin)
-             ? static_cast<float>(patch[r * kWin + q])
-             : 0.0f;
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
 }
 
+template <typename Key, int Items>
 __global__ void __launch_bounds__(kThreads) patch_metrics_kernel(
     const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-    const uint8_t* __restrict__ w, const int32_t* __restrict__ c,
-    const uint8_t* __restrict__ leader, const int32_t* __restrict__ x0,
-    const int32_t* __restrict__ y0, const int32_t* __restrict__ count,
-    const uint8_t* __restrict__ cvalid, const float* __restrict__ norm,
-    int n_events, int n_slots, float* __restrict__ out) {
-  const long long sid = blockIdx.x;  // window * n_slots + slot
-  const long long win = sid / n_slots;
-  float* o = out + sid * kMetrics;
-  if (!cvalid[sid]) {  // uniform over the block: every thread leaves
-    if (threadIdx.x < kMetrics) o[threadIdx.x] = 0.0f;
-    return;
-  }
+    const uint8_t* __restrict__ valid, const float* __restrict__ cx,
+    const float* __restrict__ cy, const int32_t* __restrict__ count,
+    const uint8_t* __restrict__ cvalid, const Params p, float* __restrict__ out) {
+  // Dynamic: two key buffers of sort_size(E) keys; x, y and the info word
+  // by event index.
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int E = p.n_events;
+  const int K = p.n_slots;
+  const int n_max = sort_size(E);
+  Key* kbuf0 = reinterpret_cast<Key*>(smem);
+  Key* kbuf1 = kbuf0 + n_max;
+  int* ex = reinterpret_cast<int*>(kbuf1 + n_max);
+  int* ey = ex + E;
+  int* info = ey + E;
 
-  __shared__ int patch[kPix];
+  __shared__ __align__(16) int patch[kPad * kPad];
   __shared__ int hist[kBins];
-  __shared__ float e2s[kPix];
+  __shared__ uint32_t wsum[Items * kWarps];
   __shared__ float red_g[kWarps], red_e2[kWarps], red_mx[kWarps];
-  __shared__ long long red_s1[kWarps], red_s2[kWarps], red_edges[kWarps];
-  __shared__ float thr_sh;
+  __shared__ int red_s1[kWarps], red_s2[kWarps], red_edges[kWarps];
+  __shared__ int sl_x0[kMaxSlots], sl_y0[kMaxSlots];
+  __shared__ bool sl_ok[kMaxSlots];
+  __shared__ int s_nw, s_cmax;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int p = tid; p < kPix; p += kThreads) patch[p] = 0;
-  if (tid < kBins) hist[tid] = 0;
-  __syncthreads();
+  const long long win = blockIdx.x;
+  const long long plane = static_cast<long long>(gridDim.x) * K;  // one metric's (W, K)
+  float* o = out + win * K;                                       // o[m * plane + slot]
 
-  // 1. Scatter.
-  const float nrm = norm[win];
-  const int px0 = x0[sid];
-  const int py0 = y0[sid];
-  const long long base = win * n_events;
-  for (int i = tid; i < n_events; i += kThreads) {
-    if (!w[base + i]) continue;
-    const int rx = x[base + i] - px0;
-    const int ry = y[base + i] - py0;
-    if (rx < 0 || rx >= kWin || ry < 0 || ry >= kWin) continue;
-    atomicAdd(&patch[ry * kWin + rx], 1);
-    if (leader[base + i]) {
-      const float v = __fmul_rn(__fdiv_rn(static_cast<float>(c[base + i]), nrm),
-                                static_cast<float>(kBins));
-      const int b = min(max(static_cast<int>(v), 0), kBins - 1);
-      atomicAdd(&hist[b], 1);
+  // 1. Slots. Invalid ones get their zeros here.
+  bool ok = false;
+  if (tid < K) {
+    const long long s = win * K + tid;
+    ok = cvalid[s];
+    if (ok) {
+      sl_x0[tid] = min(max(__float2int_rn(cx[s]) - kWin / 2, 0), p.width - kWin);
+      sl_y0[tid] = min(max(__float2int_rn(cy[s]) - kWin / 2, 0), p.height - kWin);
+    } else {
+#pragma unroll
+      for (int m = 0; m < kMetrics; ++m) o[m * plane + tid] = 0.0f;
+    }
+    sl_ok[tid] = ok;
+  }
+  if (tid == 0) {
+    s_nw = 0;
+    s_cmax = 0;
+  }
+  if (!__syncthreads_or(ok)) return;  // no valid slot: every thread leaves
+
+  if (tid < kBins) hist[tid] = 0;
+  for (int q = tid; q < kPad * kPad / 4; q += kThreads)
+    reinterpret_cast<int4*>(patch)[q] = make_int4(0, 0, 0, 0);
+
+  // 2. Load; the w events' keys go to kbuf0 in any order.
+  const long long base = win * E;
+  for (int it = 0; it * kThreads < E; ++it) {
+    const int i = it * kThreads + tid;
+    bool w = false;
+    Key key = 0;
+    if (i < E) {
+      const int xi = x[base + i];
+      const int yi = y[base + i];
+      ex[i] = xi;
+      ey[i] = yi;
+      info[i] = 0;
+      w = valid[base + i] && xi >= 0 && xi < p.width && yi >= 0 && yi < p.height;
+      if (w) {
+        const Key pix = static_cast<Key>(yi) * static_cast<Key>(p.width) + static_cast<Key>(xi);
+        key = (pix << p.ebits) | static_cast<Key>(i);
+      }
+    }
+    warp_append(w, key, kbuf0, &s_nw);
+  }
+  __syncthreads();
+  const int nw = s_nw;
+
+  // 3. Sort, pixel runs: c, leaders, norm, then each w event's info word.
+  float nrm = 1.0f;
+  if (nw > 0) {
+    const int n = sort_size(nw);
+    const int items = n > kThreads ? n / kThreads : 1;
+    Key v[Items];
+#pragma unroll
+    for (int it = 0; it < Items; ++it) {
+      const int e = it * kThreads + tid;
+      v[it] = e < nw ? kbuf0[e] : ~static_cast<Key>(0);
+    }
+    __syncthreads();
+    PingPong<Key> pp{{kbuf0, kbuf1}, 0};
+    bitonic_sort<Key, Items>(v, n, pp);
+    Key* sk = pp.take();
+#pragma unroll
+    for (int it = 0; it < Items; ++it) {
+      const int e = it * kThreads + tid;
+      if (it < items && e < nw) sk[e] = v[it];
+    }
+    __syncthreads();
+
+    uint32_t f[Items][1];
+    bool st[Items], en[Items];
+#pragma unroll
+    for (int it = 0; it < Items; ++it) {
+      const int e = it * kThreads + tid;
+      f[it][0] = 0;
+      st[it] = en[it] = false;
+      if (it < items && e < nw) {
+        const Key cur = v[it] >> p.ebits;
+        st[it] = e == 0 || (sk[e - 1] >> p.ebits) != cur;
+        en[it] = e == nw - 1 || (sk[e + 1] >> p.ebits) != cur;
+        f[it][0] = st[it];
+      }
+    }
+    uint32_t runs[1];
+    block_scan<1, Items>(f, items, wsum, runs);
+    // The key buffers are free after the scan's barrier.
+    int* run_lo = reinterpret_cast<int*>(kbuf0);
+    int* run_hi = reinterpret_cast<int*>(kbuf1);
+#pragma unroll
+    for (int it = 0; it < Items; ++it) {
+      const int e = it * kThreads + tid;
+      if (st[it]) run_lo[f[it][0] - 1] = e;
+      if (en[it]) run_hi[f[it][0] - 1] = e;
+    }
+    __syncthreads();
+    int c[Items];
+    int cmax = 0;
+#pragma unroll
+    for (int it = 0; it < Items; ++it) {
+      const int e = it * kThreads + tid;
+      c[it] = 0;
+      if (it < items && e < nw) {
+        c[it] = run_hi[f[it][0] - 1] - run_lo[f[it][0] - 1] + 1;
+        cmax = max(cmax, c[it]);
+      }
+    }
+    cmax = warp_max(cmax);
+    if (lane == 0) atomicMax(&s_cmax, cmax);
+    __syncthreads();
+    nrm = static_cast<float>(max(s_cmax, 1));
+    const Key imask = (static_cast<Key>(1) << p.ebits) - 1;
+#pragma unroll
+    for (int it = 0; it < Items; ++it) {
+      const int e = it * kThreads + tid;
+      if (!(it < items && e < nw)) continue;
+      int inf = kW;
+      if (st[it]) {
+        const float b = __fmul_rn(__fdiv_rn(static_cast<float>(c[it]), nrm),
+                                  static_cast<float>(kBins));
+        inf |= kLead | (min(max(static_cast<int>(b), 0), kBins - 1) << 2);
+      }
+      info[static_cast<int>(v[it] & imask)] = inf;
     }
   }
   __syncthreads();
 
-  // 2. Sobel (zero padded) and the first reductions.
+  // 4-5. Per valid slot.
   const float nn = __fmul_rn(nrm, nrm);
-  float s_g = 0.0f, s_e2 = 0.0f, mx = -INFINITY;
-  long long s1 = 0, s2 = 0;
-  for (int p = tid; p < kPix; p += kThreads) {
-    const int r = p / kWin;
-    const int q = p - r * kWin;
-    const float ul = pix(patch, r - 1, q - 1), up = pix(patch, r - 1, q);
-    const float ur = pix(patch, r - 1, q + 1), left = pix(patch, r, q - 1);
-    const float right = pix(patch, r, q + 1), dl = pix(patch, r + 1, q - 1);
-    const float down = pix(patch, r + 1, q), dr = pix(patch, r + 1, q + 1);
-    const float gx = __fadd_rn(
-        __fadd_rn(__fsub_rn(ur, ul), __fmul_rn(2.0f, __fsub_rn(right, left))),
-        __fsub_rn(dr, dl));
-    const float gy = __fadd_rn(
-        __fadd_rn(__fsub_rn(dl, ul), __fmul_rn(2.0f, __fsub_rn(down, up))),
-        __fsub_rn(dr, ur));
-    const float e2 = __fadd_rn(
-        __fdiv_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), nn), 1e-12f);
-    e2s[p] = e2;
-    s_g = __fadd_rn(s_g, __fsqrt_rn(e2));
-    s_e2 = __fadd_rn(s_e2, e2);
-    mx = fmaxf(mx, e2);
-    const long long cnt = patch[p];
-    s1 += cnt;
-    s2 += cnt * cnt;
-  }
-  s_g = warp_sum(s_g);
-  s_e2 = warp_sum(s_e2);
-  mx = warp_max(mx);
-  s1 = warp_sum_ll(s1);
-  s2 = warp_sum_ll(s2);
-  if (lane == 0) {
-    red_g[warp] = s_g;
-    red_e2[warp] = s_e2;
-    red_mx[warp] = mx;
-    red_s1[warp] = s1;
-    red_s2[warp] = s2;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float m = red_mx[0];
-    for (int k = 1; k < kWarps; ++k) m = fmaxf(m, red_mx[k]);
-    const float den = fmaxf(__fsqrt_rn(m), 1e-3f);
-    const float a = __fmul_rn(kEdgeThreshold, den);
-    thr_sh = __fmul_rn(a, a);
-  }
-  __syncthreads();
-
-  // 3. Edge count.
-  const float thr = thr_sh;
-  long long edges = 0;
-  for (int p = tid; p < kPix; p += kThreads) edges += e2s[p] > thr ? 1 : 0;
-  edges = warp_sum_ll(edges);
-  if (lane == 0) red_edges[warp] = edges;
-  __syncthreads();
-
-  // 4. The six metrics.
-  if (tid != 0) return;
-  float g_tot = 0.0f, e2_tot = 0.0f;
-  long long s1_tot = 0, s2_tot = 0, edge_tot = 0;
-  for (int k = 0; k < kWarps; ++k) {
-    g_tot = __fadd_rn(g_tot, red_g[k]);
-    e2_tot = __fadd_rn(e2_tot, red_e2[k]);
-    s1_tot += red_s1[k];
-    s2_tot += red_s2[k];
-    edge_tot += red_edges[k];
-  }
+  const float g_eps = __fsqrt_rn(1e-12f);  // sqrt(e2) where g2 = 0
   // The reference runs under jit, where XLA turns division by the constant
   // pixel count into multiplication by its float32 reciprocal.
   const float inv_n = __fdiv_rn(1.0f, static_cast<float>(kPix));
+  for (int sl = 0; sl < K; ++sl) {
+    if (!sl_ok[sl]) continue;  // uniform over the block
+    const int x0 = sl_x0[sl], y0 = sl_y0[sl];
+    for (int i = tid; i < E; i += kThreads) {
+      const int inf = info[i];
+      if (!inf) continue;
+      const int rx = ex[i] - x0;
+      const int ry = ey[i] - y0;
+      if (static_cast<unsigned>(rx) >= kWin || static_cast<unsigned>(ry) >= kWin) continue;
+      atomicAdd(&patch[(ry + 1) * kPad + rx + 1], 1);
+      if (inf & kLead) atomicAdd(&hist[inf >> 2], 1);
+    }
+    __syncthreads();
 
-  int occ = 0;
-  for (int b = 0; b < kBins; ++b) occ += hist[b];
-  float hsum = 0.0f;
-  for (int b = 0; b < kBins; ++b) {
-    const float h = static_cast<float>(hist[b] + (b == 0 ? kPix - occ : 0));
-    hsum = __fadd_rn(hsum, h);
+    float e2v[kPixPerThread];
+    float s_g = 0.0f, s_e2 = 0.0f, mx = -INFINITY;
+    int s1 = 0, s2 = 0;
+#pragma unroll
+    for (int j = 0; j < kPixPerThread; ++j) {
+      const int px = tid + j * kThreads;
+      const int r = px / kWin;
+      const int* q = patch + r * kPad + (px - r * kWin);  // the 3x3 around (r, col)
+      const int ul = q[0], up = q[1], ur = q[2];
+      const int left = q[kPad], mid = q[kPad + 1], right = q[kPad + 2];
+      const int dl = q[2 * kPad], down = q[2 * kPad + 1], dr = q[2 * kPad + 2];
+      const int gx = (ur - ul) + 2 * (right - left) + (dr - dl);
+      const int gy = (dl - ul) + 2 * (down - up) + (dr - ur);
+      const int g2 = gx * gx + gy * gy;
+      float e2 = 1e-12f, g = g_eps;
+      if (g2 != 0) {
+        e2 = __fadd_rn(__fdiv_rn(__int2float_rn(g2), nn), 1e-12f);
+        g = __fsqrt_rn(e2);
+      }
+      e2v[j] = e2;
+      s_g = __fadd_rn(s_g, g);
+      s_e2 = __fadd_rn(s_e2, e2);
+      mx = fmaxf(mx, e2);
+      s1 += mid;
+      s2 += mid * mid;
+    }
+    s_g = warp_sum(s_g);
+    s_e2 = warp_sum(s_e2);
+    mx = warp_max(mx);
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      red_g[warp] = s_g;
+      red_e2[warp] = s_e2;
+      red_mx[warp] = mx;
+      red_s1[warp] = s1;
+      red_s2[warp] = s2;
+    }
+    __syncthreads();
+
+    float m = red_mx[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_mx[w]);
+    const float a = __fmul_rn(kEdgeThreshold, fmaxf(__fsqrt_rn(m), 1e-3f));
+    const float thr = __fmul_rn(a, a);
+    int edges = 0;
+#pragma unroll
+    for (int j = 0; j < kPixPerThread; ++j) edges += e2v[j] > thr ? 1 : 0;
+    edges = warp_sum(edges);
+    if (lane == 0) red_edges[warp] = edges;
+    for (int q = tid; q < kPad * kPad / 4; q += kThreads)
+      reinterpret_cast<int4*>(patch)[q] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+
+    // The histogram terms one bin a lane in warp 0 (kBins == 32), summed
+    // by xor shuffles; lane 0 then evaluates the six metrics.
+    if (warp == 0) {
+      const int hb = hist[lane];
+      hist[lane] = 0;
+      const int occ = warp_sum(hb);
+      const float h = static_cast<float>(hb + (lane == 0 ? kPix - occ : 0));
+      const float hden = fmaxf(warp_sum(h), 1.0f);
+      const float pb = __fdiv_rn(h, hden);
+      const float shannon =
+          warp_sum(pb > 0.0f ? __fmul_rn(pb, log2f(fmaxf(pb, 1e-12f))) : 0.0f);
+      const float collide = warp_sum(__fmul_rn(pb, pb));
+      if (lane == 0) {
+        float g_tot = 0.0f, e2_tot = 0.0f;
+        int s1_tot = 0, s2_tot = 0, edge_tot = 0;
+        for (int w = 0; w < kWarps; ++w) {
+          g_tot = __fadd_rn(g_tot, red_g[w]);
+          e2_tot = __fadd_rn(e2_tot, red_e2[w]);
+          s1_tot += red_s1[w];
+          s2_tot += red_s2[w];
+          edge_tot += red_edges[w];
+        }
+        const float mean = __fmul_rn(static_cast<float>(s1_tot), inv_n);
+        const float var_c = fmaxf(
+            __fsub_rn(__fmul_rn(static_cast<float>(s2_tot), inv_n), __fmul_rn(mean, mean)),
+            0.0f);
+        const float contrast = __fdiv_rn(__fsqrt_rn(var_c), nrm);
+
+        const float m1 = __fmul_rn(g_tot, inv_n);
+        const float var_g = fmaxf(
+            __fsub_rn(__fmul_rn(e2_tot, inv_n), __fmul_rn(m1, m1)), 1e-12f);
+        const float diff_entropy = __fmul_rn(0.5f, log2f(__fmul_rn(kTwoPiE, var_g)));
+
+        o[sl] = -shannon;
+        o[plane + sl] = -log2f(fmaxf(collide, 1e-12f));
+        o[2 * plane + sl] = diff_entropy;
+        o[3 * plane + sl] = contrast;
+        o[4 * plane + sl] = __fmul_rn(static_cast<float>(edge_tot), inv_n);
+        o[5 * plane + sl] = static_cast<float>(count[win * K + sl]);
+      }
+    }
+    __syncthreads();
   }
-  const float hden = fmaxf(hsum, 1.0f);
-  float shannon = 0.0f, collide = 0.0f;
-  for (int b = 0; b < kBins; ++b) {
-    const float h = static_cast<float>(hist[b] + (b == 0 ? kPix - occ : 0));
-    const float p = __fdiv_rn(h, hden);
-    if (p > 0.0f) shannon = __fadd_rn(shannon, __fmul_rn(p, log2f(fmaxf(p, 1e-12f))));
-    collide = __fadd_rn(collide, __fmul_rn(p, p));
+}
+
+int bit_length(unsigned long long v) {
+  int b = 0;
+  while (v) {
+    ++b;
+    v >>= 1;
   }
+  return b;
+}
 
-  const float mean = __fmul_rn(static_cast<float>(s1_tot), inv_n);
-  const float var_c = fmaxf(
-      __fsub_rn(__fmul_rn(static_cast<float>(s2_tot), inv_n), __fmul_rn(mean, mean)), 0.0f);
-  const float contrast = __fdiv_rn(__fsqrt_rn(var_c), nrm);
+template <typename Key, int Items>
+int launch(const Params& p, int n_windows, const void* x, const void* y, const void* valid,
+           const void* cx, const void* cy, const void* count, const void* cvalid, void* out,
+           cudaStream_t stream) {
+  // At most 2 * 1,024 * 8 + 3 * 1,024 * 4 = 28 KB: no opt-in needed.
+  const size_t smem = 2 * static_cast<size_t>(sort_size(p.n_events)) * sizeof(Key) +
+                      3 * static_cast<size_t>(p.n_events) * sizeof(int);
+  patch_metrics_kernel<Key, Items><<<n_windows, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(cx),
+      static_cast<const float*>(cy), static_cast<const int32_t*>(count),
+      static_cast<const uint8_t*>(cvalid), p, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
-  const float m1 = __fmul_rn(g_tot, inv_n);
-  const float var_g = fmaxf(
-      __fsub_rn(__fmul_rn(e2_tot, inv_n), __fmul_rn(m1, m1)), 1e-12f);
-  const float diff_entropy = __fmul_rn(0.5f, log2f(__fmul_rn(kTwoPiE, var_g)));
-
-  o[0] = -shannon;
-  o[1] = -log2f(fmaxf(collide, 1e-12f));
-  o[2] = diff_entropy;
-  o[3] = contrast;
-  o[4] = __fmul_rn(static_cast<float>(edge_tot), inv_n);
-  o[5] = static_cast<float>(count[sid]);
+template <typename Key>
+int launch_items(const Params& p, int n_windows, const void* x, const void* y,
+                 const void* valid, const void* cx, const void* cy, const void* count,
+                 const void* cvalid, void* out, cudaStream_t stream) {
+  return p.n_events <= kThreads
+             ? launch<Key, 1>(p, n_windows, x, y, valid, cx, cy, count, cvalid, out, stream)
+             : launch<Key, kMaxEvents / kThreads>(p, n_windows, x, y, valid, cx, cy, count,
+                                                  cvalid, out, stream);
 }
 
 }  // namespace
 
-// Event tensors (n_windows, n_events): x, y, c int32; w, leader bool.
-// Slot tensors (n_windows, n_slots): x0, y0, count int32; cvalid bool.
-// norm: (n_windows,) float32; out: (n_windows, n_slots, 6) float32.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Events (n_windows, n_events): x, y int32; valid bool. Slots (n_windows,
+// n_slots): cx, cy float32 centroids; count int32; cvalid bool.
+// out: (6, n_windows, n_slots) float32.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int patch_metrics_launch(
-    const void* x, const void* y, const void* w, const void* c,
-    const void* leader, const void* x0, const void* y0, const void* count,
-    const void* cvalid, const void* norm, int n_windows, int n_events,
-    int n_slots, void* out, void* stream) {
-  const long long blocks = static_cast<long long>(n_windows) * n_slots;
-  if (blocks == 0) return 0;
-  patch_metrics_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
-      static_cast<const uint8_t*>(w), static_cast<const int32_t*>(c),
-      static_cast<const uint8_t*>(leader), static_cast<const int32_t*>(x0),
-      static_cast<const int32_t*>(y0), static_cast<const int32_t*>(count),
-      static_cast<const uint8_t*>(cvalid), static_cast<const float*>(norm),
-      n_events, n_slots, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+    const void* x, const void* y, const void* valid, const void* cx, const void* cy,
+    const void* count, const void* cvalid, int n_windows, int n_events, int n_slots,
+    int width, int height, void* out, void* stream) {
+  if (n_events < 0 || n_events > kMaxEvents || n_slots < 0 || n_slots > kMaxSlots ||
+      width < 1 || height < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_windows == 0 || n_slots == 0) return 0;
+  Params p;
+  p.n_events = n_events;
+  p.n_slots = n_slots;
+  p.width = width;
+  p.height = height;
+  p.ebits = bit_length(static_cast<unsigned long long>(n_events > 0 ? n_events - 1 : 0));
+  const int bits =
+      bit_length(static_cast<unsigned long long>(width) * static_cast<unsigned long long>(height) - 1) +
+      p.ebits;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits <= 32)
+    return launch_items<uint32_t>(p, n_windows, x, y, valid, cx, cy, count, cvalid, out, st);
+  if (bits <= 64)
+    return launch_items<unsigned long long>(p, n_windows, x, y, valid, cx, cy, count, cvalid,
+                                            out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

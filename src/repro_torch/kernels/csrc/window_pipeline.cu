@@ -72,7 +72,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "block_sort.cuh"
 
 namespace {
 
@@ -82,15 +83,12 @@ constexpr int kPix = kWin * kWin;
 constexpr int kBins = 32;
 constexpr int kSurf = kBins + 5;
 constexpr int kFields = 9;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxEvents = 1024;
 constexpr int kMaxSlots = 128;
 constexpr int kCentroidOne = 256;  // UQ10.8
 constexpr int kBandRows = 10;      // Sobel: 48 columns x 5 bands of <= 10 rows
 constexpr int kBandThreads = kWin * ((kWin + kBandRows - 1) / kBandRows);
 constexpr int kLead = 1 << 11;     // info word: c (bits 0-10), leader, bin << 12
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   int n_events;
@@ -103,13 +101,6 @@ struct Params {
   int in_cell;       // pixel field: offset inside the cell (1) or whole index (0)
   int ebits, obits;  // key = cell << (obits + ebits) | pixel << ebits | index
 };
-
-// Keys a sort takes: max(32, the power of two >= n).
-__host__ __device__ __forceinline__ int sort_size(int n) {
-  int s = 32;
-  while (s < n) s <<= 1;
-  return s;
-}
 
 // Floor division for den > 0 (JAX's //).
 __device__ __forceinline__ int floor_div(int num, int den) {
@@ -151,130 +142,6 @@ __device__ __forceinline__ int warp_sum(int v) {
 __device__ __forceinline__ int warp_max(int v) {
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
   return v;
-}
-
-template <typename Key>
-__device__ __forceinline__ Key shfl_xor(Key v, int m) {
-  constexpr int n = sizeof(Key) / 4;
-  uint32_t w[n];
-  memcpy(w, &v, sizeof(Key));
-#pragma unroll
-  for (int i = 0; i < n; ++i) w[i] = __shfl_xor_sync(kFull, w[i], m);
-  memcpy(&v, w, sizeof(Key));
-  return v;
-}
-
-// Two shared buffers taken in turn: a buffer written after a barrier is
-// never the one other threads may still read from before it.
-template <typename Key>
-struct PingPong {
-  Key* buf[2];
-  int next;
-  __device__ Key* take() {
-    Key* b = buf[next];
-    next ^= 1;
-    return b;
-  }
-};
-
-// The bitonic step on element e against its partner p: the lower element
-// of the pair keeps the smaller key on an ascending run.
-template <typename Key>
-__device__ __forceinline__ Key bitonic_pick(Key a, Key p, int e, int j, int k) {
-  const bool keep_min = !(e & j) == !(e & k);
-  return keep_min ? (p < a ? p : a) : (p > a ? p : a);
-}
-
-template <typename Key>
-__device__ __forceinline__ void bitonic_swap(Key& a, Key& b, int e, int k) {
-  if ((a > b) == !(e & k)) {
-    const Key t = a;
-    a = b;
-    b = t;
-  }
-}
-
-// Sorts, ascending, the n keys (n a power of two, 32 <= n <= Items *
-// kThreads) that the block holds in registers: element e = it * kThreads
-// + tid in v[it]. Every thread of the block calls it.
-template <typename Key, int Items>
-__device__ void bitonic_sort(Key (&v)[Items], int n, PingPong<Key>& pp) {
-  const int tid = threadIdx.x;
-  const int items = n > kThreads ? n / kThreads : 1;
-  const bool holds = tid < n;  // whole warps: n is a multiple of 32
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j >= kThreads) {  // the partner is this thread's item it ^ (j / kThreads)
-        if constexpr (Items == 4) {
-          if (j == 2 * kThreads) {
-            bitonic_swap(v[0], v[2], tid, k);
-            bitonic_swap(v[1], v[3], kThreads + tid, k);
-          } else {
-            bitonic_swap(v[0], v[1], tid, k);
-            if (items == 4) bitonic_swap(v[2], v[3], 2 * kThreads + tid, k);
-          }
-        }
-      } else if (j >= 32) {  // the partner is in another warp
-        Key* b = pp.take();
-#pragma unroll
-        for (int it = 0; it < Items; ++it)
-          if (it < items && holds) b[it * kThreads + tid] = v[it];
-        __syncthreads();
-#pragma unroll
-        for (int it = 0; it < Items; ++it) {
-          const int e = it * kThreads + tid;
-          if (it < items && holds) v[it] = bitonic_pick(v[it], b[e ^ j], e, j, k);
-        }
-      } else {  // the partner is in this warp
-#pragma unroll
-        for (int it = 0; it < Items; ++it) {
-          const int e = it * kThreads + tid;
-          if (it < items && holds) v[it] = bitonic_pick(v[it], shfl_xor(v[it], j), e, j, k);
-        }
-      }
-    }
-  }
-}
-
-// Inclusive block-wide sums (uint32, wrapping) of N values per element,
-// in element order e = it * kThreads + tid; total gets the block's sums.
-// wsum (Items * kWarps * N words) must not be read by another call
-// before a barrier separates the two.
-template <int N, int Items>
-__device__ void block_scan(uint32_t (&v)[Items][N], int items, uint32_t* wsum,
-                           uint32_t (&total)[N]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int it = 0; it < Items; ++it) {
-    if (it >= items) break;
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      uint32_t x = v[it][q];
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t y = __shfl_up_sync(kFull, x, o);
-        if (lane >= o) x += y;
-      }
-      v[it][q] = x;
-      if (lane == 31) wsum[(it * kWarps + warp) * N + q] = x;
-    }
-  }
-  __syncthreads();
-  // Every warp scans the items * kWarps (<= 32) warp totals itself.
-  const int m = items * kWarps;
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    const uint32_t own = lane < m ? wsum[lane * N + q] : 0u;
-    uint32_t s = own;
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += y;
-    }
-    total[q] = __shfl_sync(kFull, s, 31);
-    const uint32_t before = s - own;
-#pragma unroll
-    for (int it = 0; it < Items; ++it)
-      if (it < items) v[it][q] += __shfl_sync(kFull, before, it * kWarps + warp);
-  }
 }
 
 template <typename Key>
@@ -353,13 +220,7 @@ __global__ void __launch_bounds__(kThreads) window_pipeline_kernel(
              xi >= 0 && xi < p.width && yi >= 0 && yi < p.height;
       if (kept) key = event_key<Key>(xi, yi, i, p);
     }
-    const unsigned ballot = __ballot_sync(kFull, kept);
-    if (ballot) {
-      int at = 0;
-      if (lane == 0) at = atomicAdd(&s_kept, __popc(ballot));
-      at = __shfl_sync(kFull, at, 0);
-      if (kept) kbuf0[at + __popc(ballot & ((1u << lane) - 1u))] = key;
-    }
+    warp_append(kept, key, kbuf0, &s_kept);
   }
   __syncthreads();
   const int nk = s_kept;

@@ -77,17 +77,9 @@ def event_unpack(
     buf = torch.empty(4 * plane + (plane + 3) // 4, dtype=torch.int32, device=dev)
     packed = buf.as_strided((4, s, w, capacity), (plane, w * capacity, capacity, 1))
     valid = buf.view(torch.bool).as_strided((s, w, capacity), (w * capacity, capacity, 1), 16 * plane)
-    # The raw current stream: torch.cuda.current_stream() builds a Stream
-    # object, several times the cost of the launch itself.
-    index = dev.index
-    launch = lambda: _launcher()(  # noqa: E731
+    err = _build.launch_on(dev.index, lambda stream: _launcher()(
         *(a.data_ptr() for a in args), n, spill.shape[1], s, w, capacity,
-        packed.data_ptr(), valid.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
-    )
-    if index == torch.cuda.current_device():
-        err = launch()
-    else:
-        with torch.cuda.device(dev):
-            err = launch()
+        packed.data_ptr(), valid.data_ptr(), stream,
+    ))
     _build.check(err, "event_unpack")
     return packed, valid

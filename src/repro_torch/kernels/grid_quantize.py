@@ -44,10 +44,8 @@ def grid_quantize_packed(words: torch.Tensor, cell_size: int) -> torch.Tensor:
     if not 1 <= cell_size <= 0xFFFF:
         raise ValueError(f"cell_size must lie in [1, 65535], got {cell_size}")
     out = torch.empty_like(words)
-    with torch.cuda.device(words.device):
-        err = _launcher()(
-            words.data_ptr(), words.shape[0], cell_size, out.data_ptr(),
-            torch.cuda.current_stream(words.device).cuda_stream,
-        )
+    err = _build.launch_on(words.device.index, lambda stream: _launcher()(
+        words.data_ptr(), words.shape[0], cell_size, out.data_ptr(), stream,
+    ))
     _build.check(err, "grid_quantize_packed")
     return out

@@ -12,7 +12,10 @@ import torch
 
 from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
+from repro_torch.core.grid_clustering import Clusters, GridConfig
+from repro_torch.kernels import cluster_accum as _ca
 from repro_torch.kernels import event_unpack as _eu
+from repro_torch.kernels import patch_metrics as _pm
 from repro_torch.kernels import ref
 
 LAUNCHES = {
@@ -55,8 +58,6 @@ def cluster_accum(
     kw = dict(cell_size=cell_size, grid_w=grid_w, grid_h=grid_h, width=width, height=height)
     if _route(x) == "cpu":
         return ref.cluster_accum_ref(x, y, t, valid, **kw)
-    from repro_torch.kernels import cluster_accum as _ca
-
     e = x.shape[-1]
     lead = x.shape[:-1]
     flat = lambda a, dt: a.to(dt).reshape(-1, e).contiguous()
@@ -68,6 +69,28 @@ def cluster_accum(
     return tuple(a.reshape(*lead, grid_w * grid_h) for a in out)
 
 
+def cluster_accum_topk(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    t: torch.Tensor,
+    valid: torch.Tensor,
+    grid: GridConfig,
+) -> Clusters:
+    """The clustering stage in one launch: over ``(W, E)`` events, what
+    ``clusters_from_histogram(*cluster_accum(...), grid)`` returns, the
+    ``(W, K)`` top-K clusters. On the card it takes x, y, t int32 and valid
+    bool, contiguous, as the drivers hand them over (the kernel's wrapper
+    raises on anything else), and raises for E > 1024 or K > 128."""
+    if t.is_floating_point():
+        raise TypeError("cluster_accum_topk takes integer window-relative t")
+    if _route(x) == "cpu":
+        return ref.cluster_accum_topk_ref(x, y, t, valid, grid)
+    clusters = _ca.cluster_accum_topk(x, y, t, valid, grid)
+    if x.shape[0]:  # with no windows the launcher returns before launching
+        LAUNCHES["cluster_accum"] += 1
+    return clusters
+
+
 def patch_metrics(
     batch,
     clusters,
@@ -77,34 +100,26 @@ def patch_metrics(
     window: int | None = None,
     bins: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Fused event -> patch scatter + six cluster metrics over ``(W, E)``
-    windows and ``(W, K)`` clusters.
-
-    The event-space preprocessing (coincidence counts, leaders, the frame
-    normalizer, patch origins) runs here as tensor ops; the per-slot
-    patch, histogram, Sobel and metric math run in the kernel. Returns
-    the metric dict keyed by ``METRIC_NAMES``, each ``(W, K)``.
-    """
+    """The metrics stage in one launch: six metrics per cluster over ``(W,
+    E)`` windows and ``(W, K)`` clusters, the coincidence counts, leaders,
+    frame normalizer and patch origins included. Returns the metric dict
+    keyed by ``METRIC_NAMES``, each ``(W, K)``. On the card it takes the
+    types the window core hands over (the kernel's wrapper raises on
+    anything else) and raises for E > 1024 or K > 128."""
     window = M.WINDOW if window is None else window
     bins = M.HIST_BINS if bins is None else bins
-    c, leader, w, norm = M.event_normalizer(batch, width, height)
-    x0, y0 = M.window_origin(clusters.centroid_x, clusters.centroid_y, width, height, window)
-    args = (batch.x, batch.y, w, c, leader, x0, y0, clusters.count, clusters.valid, norm)
     if _route(batch.x) == "cpu":
-        out = ref.patch_metrics_ref(*args, window=window, bins=bins)
-    else:
-        from repro_torch.kernels import patch_metrics as _pm
-
-        if (window, bins) != (_pm.WINDOW, _pm.BINS):
-            raise ValueError(
-                f"the CUDA patch_metrics kernel is built for window={_pm.WINDOW}, "
-                f"bins={_pm.BINS}; got window={window}, bins={bins}"
-            )
-        dtypes = (torch.int32, torch.int32, torch.bool, torch.int32, torch.bool,
-                  torch.int32, torch.int32, torch.int32, torch.bool, torch.float32)
-        out = _pm.patch_metrics(*(a.to(d).contiguous() for a, d in zip(args, dtypes)))
+        return ref.patch_metrics_stage_ref(
+            batch, clusters, width=width, height=height, window=window, bins=bins)
+    if (window, bins) != (_pm.WINDOW, _pm.BINS):
+        raise ValueError(
+            f"the CUDA patch_metrics kernel is built for window={_pm.WINDOW}, "
+            f"bins={_pm.BINS}; got window={window}, bins={bins}"
+        )
+    out = _pm.patch_metrics(batch, clusters, width=width, height=height)
+    if clusters.valid.numel():  # with no slots the launcher returns before launching
         LAUNCHES["patch_metrics"] += 1
-    return {name: out[..., i] for i, name in enumerate(M.METRIC_NAMES)}
+    return out
 
 
 def window_pipeline(batch, config):

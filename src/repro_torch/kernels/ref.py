@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core import fixed_point as FX
 from repro_torch.core import metrics as M
-from repro_torch.core.events import unpack_wire
+from repro_torch.core.events import EventBatch, unpack_wire
+from repro_torch.core.grid_clustering import Clusters, GridConfig, clusters_from_histogram
 
 # The event_unpack kernel's plain version is the port's plain decoder.
 unpack_wire_ref = unpack_wire
@@ -55,6 +56,47 @@ def cluster_accum_ref(
     sum_y = acc(vf * yi.to(torch.float32))
     sum_t = acc(vf * t.reshape(-1, e).to(torch.float32))
     return count, sum_x, sum_y, sum_t
+
+
+def cluster_accum_topk_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    t: torch.Tensor,
+    valid: torch.Tensor,
+    grid: GridConfig,
+) -> Clusters:
+    """The clustering stage the ``cluster_accum`` kernel's stage entry
+    computes: :func:`cluster_accum_ref` under ``grid``, then the top-K
+    clusters of :func:`clusters_from_histogram`. Returns ``(..., K)``
+    clusters."""
+    rows = cluster_accum_ref(
+        x, y, t, valid, cell_size=grid.cell_size, grid_w=grid.grid_w, grid_h=grid.grid_h,
+        width=grid.width, height=grid.height,
+    )
+    return clusters_from_histogram(*rows, grid)
+
+
+def patch_metrics_stage_ref(
+    batch: EventBatch,
+    clusters: Clusters,
+    *,
+    width: int,
+    height: int,
+    window: int = M.WINDOW,
+    bins: int = M.HIST_BINS,
+) -> dict[str, torch.Tensor]:
+    """The metrics stage the ``patch_metrics`` kernel computes over ``(W,
+    E)`` events and ``(W, K)`` clusters: the frame normalizer, coincidence
+    counts and leaders (:func:`event_normalizer`), the patch origins
+    (:func:`window_origin`), then :func:`patch_metrics_ref` per slot.
+    Returns the metric dict keyed by ``METRIC_NAMES``, each ``(W, K)``."""
+    c, leader, w, norm = M.event_normalizer(batch, width, height)
+    x0, y0 = M.window_origin(clusters.centroid_x, clusters.centroid_y, width, height, window)
+    out = patch_metrics_ref(
+        batch.x, batch.y, w, c, leader, x0, y0, clusters.count, clusters.valid, norm,
+        window=window, bins=bins,
+    )
+    return {name: out[..., i] for i, name in enumerate(M.METRIC_NAMES)}
 
 
 def patch_metrics_ref(

@@ -50,10 +50,9 @@ def window_entropy(frame: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> t
             raise ValueError(f"window_entropy takes contiguous CUDA {dt}, got {a.dtype} on {a.device}")
     k = cx.shape[0]
     out = torch.empty((3, k), dtype=torch.float32, device=frame.device)
-    with torch.cuda.device(frame.device):
-        err = _launcher()(
-            frame.data_ptr(), frame.shape[0], frame.shape[1], cx.data_ptr(), cy.data_ptr(),
-            k, out.data_ptr(), torch.cuda.current_stream(frame.device).cuda_stream,
-        )
+    err = _build.launch_on(frame.device.index, lambda stream: _launcher()(
+        frame.data_ptr(), frame.shape[0], frame.shape[1], cx.data_ptr(), cy.data_ptr(),
+        k, out.data_ptr(), stream,
+    ))
     _build.check(err, "window_entropy")
     return out

@@ -80,12 +80,10 @@ def window_pipeline(
     fields = torch.empty((w, len(CL_FIELDS), k), dtype=torch.int32, device=dev)
     norm = torch.empty((w,), dtype=torch.int32, device=dev)
     surf = torch.empty((w, k, BINS + 5), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _launcher()(
-            x.data_ptr(), y.data_ptr(), t.data_ptr(), valid.data_ptr(),
-            w, e, *roi, hot_pixel_max, cell_size, grid_w, grid_h, min_events, k,
-            width, height, fields.data_ptr(), norm.data_ptr(), surf.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = _build.launch_on(dev.index, lambda stream: _launcher()(
+        x.data_ptr(), y.data_ptr(), t.data_ptr(), valid.data_ptr(),
+        w, e, *roi, hot_pixel_max, cell_size, grid_w, grid_h, min_events, k,
+        width, height, fields.data_ptr(), norm.data_ptr(), surf.data_ptr(), stream,
+    ))
     _build.check(err, "window_pipeline")
     return fields, norm, surf

@@ -6,9 +6,14 @@ with a card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integers compare exactly; for patch_metrics event_count and edge_density
-exactly, the entropies and contrast to rtol = atol = 1e-5
-(order-dependent float32 reductions and log2). The window_pipeline
+Integers compare exactly: cluster_accum's rows, and every field of its
+stage entry against ``clusters_from_histogram`` of the plain rows. The
+patch_metrics kernel is the whole metrics stage, held against its plain
+stage (normalizer, origins, per-slot metrics): event_count and
+edge_density exactly, the entropies and contrast to rtol = atol = 1e-5
+(order-dependent float32 reductions and log2). On the float kernel
+route each block makes one launch in its clustering and one in its
+metrics stage, by the launch counters and under the profiler. The window_pipeline
 kernel emits integers only and shares the float epilogue with its plain
 version, so its fields, valid-slot surfaces and all six metrics compare
 to the bit. The event_unpack and grid_quantize_packed kernels compare to
@@ -75,20 +80,163 @@ def test_cluster_accum_kernel_matches_plain(cuda_dev, cell_size):
         assert torch.equal(a, b)
 
 
+def _metric_cases(dev):
+    """(name, batch, clusters) cases for the metrics kernel: adversarial
+    windows with corner and invalid slots, the six named windows, runs and
+    ties, and E = 1024, each with clusters at min_events=1 plus the forced
+    slots of ``edge_slot_clusters``."""
+    from repro_torch.data.adversarial import (
+        adversarial_batch, clustered_window, named_windows, run_and_tie_windows, stacked_batch,
+    )
+
+    batches = {
+        "adversarial": adversarial_batch(dev),
+        "named windows": stacked_batch(list(named_windows().values()), dev),
+        "runs and ties": stacked_batch(run_and_tie_windows(), dev),
+        "E=1024": stacked_batch([clustered_window(s, n=1000, capacity=1024) for s in range(2)], dev),
+    }
+    return [(name, b, edge_slot_clusters(b)) for name, b in batches.items()]
+
+
+def _assert_metrics_close(got, exp, what):
+    for m in TM.METRIC_NAMES:
+        if m in EXACT:
+            assert torch.equal(got[m], exp[m]), (what, m)
+        else:
+            torch.testing.assert_close(got[m], exp[m], rtol=RTOL, atol=ATOL, msg=f"{what}: {m}")
+
+
 @pytest.mark.cuda
 def test_patch_metrics_kernel_matches_plain(cuda_dev):
-    x, y, t, v = _windows()
-    b = TE.EventBatch(*(a.to(cuda_dev) for a in _tbatch(x, y, t, v)))
-    cl = Clusters(*(a.to(cuda_dev) for a in _slot_clusters(x, y, t, v)))
-    got = ops.patch_metrics(b, cl)
-    c, leader, w, norm = TM.event_normalizer(b, 640, 480)
-    x0, y0 = TM.window_origin(cl.centroid_x, cl.centroid_y, 640, 480)
-    exp = ref.patch_metrics_ref(b.x, b.y, w, c, leader, x0, y0, cl.count, cl.valid, norm)
-    for i, m in enumerate(TM.METRIC_NAMES):
-        if m in EXACT:
-            assert torch.equal(got[m], exp[..., i]), m
-        else:
-            torch.testing.assert_close(got[m], exp[..., i], rtol=RTOL, atol=ATOL)
+    """The metrics stage in one launch against its plain version
+    (``event_normalizer`` + ``window_origin`` + ``patch_metrics_ref``)."""
+    for name, b, cl in _metric_cases(cuda_dev):
+        before = ops.LAUNCHES["patch_metrics"]
+        got = ops.patch_metrics(b, cl)
+        assert ops.LAUNCHES["patch_metrics"] == before + 1, name
+        _assert_metrics_close(got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), name)
+
+
+def _topk_grids():
+    from repro_torch.data.adversarial import ClippedGrid
+
+    grids = [GridConfig(cell_size=cs, min_events=me) for cs in (16, 12) for me in (5, 1, 0)]
+    return grids + [GridConfig(min_events=0, max_clusters=128), GridConfig(cell_size=12, max_clusters=128),
+                    ClippedGrid(), ClippedGrid(cell_size=12, cols=40, rows=30, min_events=1)]
+
+
+@pytest.mark.cuda
+def test_cluster_accum_topk_kernel_matches_plain(cuda_dev):
+    """The clustering stage in one launch, every field identical to
+    ``clusters_from_histogram(cluster_accum_ref(...))``, at cell sizes 16
+    and 12, min_events 5, 1 and 0, K 32 and 128 and on a clipped grid."""
+    batches = [b for _, b, _ in _metric_cases(cuda_dev)]
+    for g in _topk_grids():
+        for b in batches:
+            before = ops.LAUNCHES["cluster_accum"]
+            got = ops.cluster_accum_topk(b.x, b.y, b.t, b.valid, g)
+            assert ops.LAUNCHES["cluster_accum"] == before + 1
+            want = ref.cluster_accum_topk_ref(b.x, b.y, b.t, b.valid, g)
+            for f in Clusters._fields:
+                assert torch.equal(getattr(got, f), getattr(want, f)), (g, f)
+
+
+@pytest.mark.cuda
+def test_stage_kernels_refuse_what_they_do_not_take(cuda_dev):
+    """No conversion on the card: another dtype raises TypeError, another
+    layout or an E over the bound ValueError; nothing is launched."""
+    b = TE.EventBatch(*(a.to(cuda_dev) for a in _tbatch(*_windows())))
+    cl = edge_slot_clusters(b)
+    g = GridConfig()
+    ops.reset_launches()
+    with pytest.raises(TypeError):
+        ops.cluster_accum_topk(b.x.long(), b.y, b.t, b.valid, g)
+    with pytest.raises(ValueError):
+        ops.cluster_accum_topk(b.x.t(), b.y.t(), b.t.t(), b.valid.t(), g)
+    with pytest.raises(TypeError):
+        ops.patch_metrics(b, cl._replace(count=cl.count.long()))
+    with pytest.raises(ValueError):
+        ops.patch_metrics(b._replace(x=b.x.t().contiguous().t()), cl)
+    wide = torch.zeros((1, 1025), dtype=torch.int32, device=cuda_dev)
+    big = TE.EventBatch(wide, wide, wide, wide, wide.bool())
+    with pytest.raises(ValueError):
+        ops.cluster_accum_topk(wide, wide, wide, wide.bool(), g)
+    with pytest.raises(ValueError):
+        ops.patch_metrics(big, Clusters(*(a[:1] for a in cl)))
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_stage_kernels_empty_block_launches_nothing(cuda_dev):
+    from repro_torch.core.events import EventBatch
+
+    z = torch.zeros((0, 256), dtype=torch.int32, device=cuda_dev)
+    b = EventBatch(z, z, z, z, z.bool())
+    ops.reset_launches()
+    cl = ops.cluster_accum_topk(b.x, b.y, b.t, b.valid, GridConfig())
+    mets = ops.patch_metrics(b, cl)
+    assert sum(ops.LAUNCHES.values()) == 0
+    assert cl.count.shape == (0, 32) and all(m.shape == (0, 32) for m in mets.values())
+
+
+def _range_kernels(prof, names):
+    """For each ``record_function`` range in ``names``, the device work
+    (kernels, copies, fills) launched in each of its occurrences: the
+    runtime calls among its descendants that put work on the device. The
+    profiler links a kernel to the aten op that launched it, so a kernel
+    a ctypes library launches is counted by its runtime call."""
+    from torch.autograd import DeviceType
+
+    calls = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cudaGraphLaunch")
+
+    def launched(e):
+        return e.name.startswith(calls) + sum(launched(c) for c in e.cpu_children)
+
+    out = {n: [] for n in names}
+    for e in prof.events():
+        if e.name in out and e.device_type == DeviceType.CPU:
+            out[e.name].append(launched(e))
+    return out
+
+
+@pytest.mark.cuda
+def test_float_stages_one_launch_per_block(cuda_dev):
+    """On the float kernel route each block of windows makes exactly one
+    device launch in its "clustering" range and one in "metrics": by the
+    launch counters and by the profiler, in the scan and in the fleet."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.pipeline import FleetPipeline, PipelineConfig, run_recording_scan
+    from repro_torch.core.pipeline import scan as S
+    from repro_torch.data.synthetic import make_recording
+
+    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    rec = make_recording(seed=11, duration_s=1.0, n_rsos=4, noise_rate_hz=20_000)
+    block = S.WINDOW_BLOCK
+    S.WINDOW_BLOCK = 16  # several blocks from a short recording
+    try:
+        run_recording_scan(rec, cfg, device=cuda_dev)
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            scan = run_recording_scan(rec, cfg, with_tracking=False, device=cuda_dev)
+            torch.cuda.synchronize()
+    finally:
+        S.WINDOW_BLOCK = block
+    n_blocks = -(-scan.num_windows // 16)
+    assert ops.LAUNCHES["cluster_accum"] == ops.LAUNCHES["patch_metrics"] == n_blocks > 1
+    counts = _range_kernels(prof, ("clustering", "metrics"))
+    assert counts == {"clustering": [1] * n_blocks, "metrics": [1] * n_blocks}, counts
+
+    recs = [make_recording(seed=20 + s, duration_s=0.5, n_rsos=1 + s % 2) for s in range(4)]
+    rounds = _fleet_rounds(recs)
+    fp = FleetPipeline(cfg, n_sensors=4, device=cuda_dev)
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps = sum(fp.feed(r).total_windows > 0 for r in rounds)
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["cluster_accum"] == ops.LAUNCHES["patch_metrics"] == steps > 0
+    counts = _range_kernels(prof, ("clustering", "metrics"))
+    assert counts == {"clustering": [1] * steps, "metrics": [1] * steps}, counts
 
 
 @pytest.mark.cuda
