@@ -51,6 +51,18 @@ Phases (any failure exits non-zero; no error is caught):
    profiler;
 5. every kernel of each path was launched on it.
 
+Since the loop driver and the accuracy sweep were ported, phase 2 also
+holds both stage kernels past their small path (E = 1025, 4096 and
+20,000; K = 160; a cell table outside shared memory; cell t sums past
+2^24, centroid_t within its stated bound) and times them on the scale
+recording's 100 ms stride windows at capacity 4096; phase 3 also runs the
+loop driver (``run_recording``) on the quickstart recording, equal window
+for window to the scan with one launch per window of each path kernel,
+and ``threshold_sweep(make_validation_suite())`` with the scan and the
+fleet driver on both datapaths, equal to the JAX reference's scores; phase
+4 also runs the scale recording in those stride windows, equal to the CPU
+run.
+
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. In that line a path
 kernel's ``launches`` count one pass of the scale recording through its
@@ -121,6 +133,21 @@ FLEET_SENSORS = 16  # DEFAULT_TIERS' third tier
 FLEET_QUICK = dict(duration_s=2.0, n_rsos=2)  # sensor s has seed 20 + s
 CHUNK_US = 20_000
 BUDGET_MS = 62.0  # the paper's per-window deterministic budget
+# Past the stage kernels' small path (E <= 1024, K <= 128): E one over it,
+# the stride windows' capacity, and past the 227 KB of shared memory that
+# patch_metrics' events and keys fit in; K = 160.
+LARGE_E = (1025, 4096, 20_000)
+LARGE_K = 160
+# The scale recording in 100 ms stride windows at capacity 4096 (about
+# 2,150 events a window): the stage kernels' large path on real sky.
+STRIDE_US = 100_000
+STRIDE_CAPACITY = 4096
+# threshold_sweep(make_validation_suite()) of the JAX reference on the CPU
+# (default config): tp, fp, fn, tn per min_events threshold.
+SWEEP_THRESHOLDS = (2, 3, 4, 5, 6, 8, 10)
+SWEEP_EXPECT = {2: (4246, 12974, 78, 0), 3: (3912, 2804, 87, 10170), 4: (3640, 647, 140, 12327),
+                5: (3386, 129, 253, 12845), 6: (3120, 20, 435, 12954), 8: (2536, 0, 933, 12974),
+                10: (1843, 0, 1608, 12974)}
 ENTROPY_RTOL, ENTROPY_ATOL = 1e-5, 1e-7  # order-dependent float32 sums, log2f
 
 
@@ -366,6 +393,131 @@ def check_kernels(dev, blocks) -> dict:
     return results
 
 
+def within_centroid_t_bound(got, want, abs_t, grid, what: str) -> float:
+    """Every cluster field of ``got`` identical to ``want``'s but
+    centroid_t, which is held to ``ref.centroid_t_bound`` of each valid
+    slot's cell (identical where the cell's t sum is below 2^24).
+    ``abs_t`` is the cells' exact sum of |t|. Returns the largest
+    centroid_t difference."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    for f in got._fields:
+        if f != "centroid_t":
+            equal(getattr(got, f), getattr(want, f), f"{what}: {f}")
+    cell = (want.cell_y * grid.grid_w + want.cell_x).clamp_min(0).long()
+    lim = torch.where(want.valid, ref.centroid_t_bound(want.count, abs_t.gather(-1, cell)), 0.0)
+    diff = (got.centroid_t.to(want.centroid_t.device).double() - want.centroid_t.double()).abs()
+    require(bool((diff <= lim).all()), f"{what}: centroid_t beyond its bound by "
+            f"{float((diff - lim).max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_large_sizes(dev) -> dict:
+    """Both stage kernels past their small path (E <= 1024, K <= 128),
+    against their plain versions on the card: E in ``LARGE_E`` at K = 32
+    and 160 (cell 16; cell 12 at min_events 0), K2's cell table outside
+    shared memory (cell 4) and the hand-built window whose cell t sums
+    pass 2^24. Every integer field identical, centroid_t and sum_t within
+    their stated bounds, K3's metrics at the stated tolerances. Returns
+    the largest difference of each kernel and of centroid_t."""
+    from repro_torch.core.grid_clustering import GridConfig
+    from repro_torch.data.adversarial import (
+        edge_slot_clusters, large_windows, stacked_batch, sum_t_window,
+    )
+    from repro_torch.kernels import ops, ref
+
+    err = {"cluster_accum": 0.0, "patch_metrics": 0.0, "centroid_t": 0.0}
+    grids = [GridConfig(), GridConfig(min_events=1, max_clusters=LARGE_K),
+             GridConfig(cell_size=12, min_events=0, max_clusters=LARGE_K)]
+    cases = [(f"E = {e}", stacked_batch(large_windows(e, n_windows=2 if e > 4096 else 3), dev),
+              list(grids)) for e in LARGE_E]
+    cases[1][2].append(GridConfig(cell_size=4, min_events=1, max_clusters=LARGE_K))
+    cases.append(("sum_t window", stacked_batch([sum_t_window()], dev), grids[:2]))
+    for name, b, gs in cases:
+        for g in gs:
+            kw = dict(cell_size=g.cell_size, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
+            abs_t = ref.abs_t_rows(b.x, b.y, b.t, b.valid, **kw)
+            before = ops.LAUNCHES["cluster_accum"]
+            got = ops.cluster_accum_topk(b.x, b.y, b.t, b.valid, g)
+            require(ops.LAUNCHES["cluster_accum"] == before + 1, f"cluster_accum_topk ({name}): not one launch")
+            want = ref.cluster_accum_topk_ref(b.x, b.y, b.t, b.valid, g)
+            err["centroid_t"] = max(err["centroid_t"], within_centroid_t_bound(
+                got, want, abs_t, g, f"cluster_accum_topk ({name}, {g})"))
+            rows = ops.cluster_accum(b.x, b.y, b.t, b.valid, **kw)
+            plain = ref.cluster_accum_ref(b.x, b.y, b.t, b.valid, **kw)
+            for field, a, e in zip(("count", "sum_x", "sum_y"), rows, plain):
+                err["cluster_accum"] = max(err["cluster_accum"], equal(a, e, f"cluster_accum {field} ({name}, {g})"))
+            lim = ref.sum_t_bound(plain[0], abs_t)
+            diff = (rows[3].double() - plain[3].double()).abs()
+            require(bool((diff <= lim).all()), f"cluster_accum sum_t ({name}, {g}): beyond its bound")
+        for k in (32, LARGE_K):
+            cl = edge_slot_clusters(b, k)
+            before = ops.LAUNCHES["patch_metrics"]
+            got = ops.patch_metrics(b, cl)
+            require(ops.LAUNCHES["patch_metrics"] == before + 1, f"patch_metrics ({name}): not one launch")
+            err["patch_metrics"] = max(err["patch_metrics"], compare_metrics(
+                got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), f"patch_metrics ({name}, K = {k})"))
+    log(f"  large sizes (E {', '.join(map(str, LARGE_E))}; K 32 and {LARGE_K}; K2's table outside shared "
+        f"memory at cell 4; the sum_t window): cluster_accum's integer fields and both entries' sums "
+        f"identical but t (centroid_t within its bound, largest difference {err['centroid_t']:.3g} us); "
+        f"patch_metrics event_count/edge_density identical, others max abs err {err['patch_metrics']:.3e}")
+    return err
+
+
+def stride_blocks(rec, cfg, dev):
+    """``rec`` in ``STRIDE_US`` stride windows at ``STRIDE_CAPACITY``,
+    conditioned and clustered as the scan's window core does it: the
+    ``(batch, clusters)`` blocks the stage kernels see there, and the
+    windows."""
+    import dataclasses
+
+    from repro_torch.core.events import BatcherConfig, EventBatch, pad_windows
+    from repro_torch.core.pipeline import config as C
+    from repro_torch.core.pipeline.scan import WINDOW_BLOCK
+    from repro_torch.core.pipeline.window_core import _cluster, _condition
+
+    cfg = dataclasses.replace(cfg, batcher=BatcherConfig(capacity=STRIDE_CAPACITY))
+    win = pad_windows(rec.x, rec.y, rec.t, rec.p, cfg.batcher, dev, policy="stride", window_us=STRIDE_US)
+    n = win.batch.x.shape[0]
+    raws = [EventBatch(*(a[lo:lo + WINDOW_BLOCK] for a in win.batch)) for lo in range(0, n, WINDOW_BLOCK)]
+    conditioned = [_condition(cfg, r) for r in raws]
+    return [(b, _cluster(cfg, C._histogram_fn(cfg), b)) for b in conditioned], win, cfg
+
+
+def time_large(blocks) -> dict:
+    """Both stage kernels per launch on the stride windows' blocks (E =
+    4,096, the large path), beside their bounds and plain versions."""
+    from repro_torch.core.grid_clustering import GridConfig
+    from repro_torch.kernels import cluster_accum as _ca
+    from repro_torch.kernels import patch_metrics as _pm
+    from repro_torch.kernels import ref
+
+    g = GridConfig()
+    ca_rows, pm_rows = [], []
+    for b, cl in blocks:
+        args = (b.x, b.y, b.t, b.valid, g)
+        ca = lambda: _ca.cluster_accum_topk(*args)  # noqa: E731
+        ca_rows.append(dict(
+            ms=kernel_device_ms(ca, ("cluster_accum_kernel",)), call_ms=cuda_ms(ca),
+            plain_ms=cuda_ms(lambda: ref.cluster_accum_topk_ref(*args)), library_ms=None,
+            **cluster_accum_topk_cost(*args), shape=tuple(b.x.shape)))
+        pm = lambda: _pm.patch_metrics(b, cl, width=640, height=480)  # noqa: E731
+        pm_rows.append(dict(
+            ms=kernel_device_ms(pm, ("patch_metrics_kernel",)), call_ms=cuda_ms(pm),
+            plain_ms=cuda_ms(lambda: ref.patch_metrics_stage_ref(b, cl, width=640, height=480),
+                             iters=3, warmup=1),
+            library_ms=None, **patch_metrics_cost(b, cl, width=640, height=480), shape=tuple(b.x.shape)))
+    out = {}
+    for name, rows in (("cluster_accum", ca_rows), ("patch_metrics", pm_rows)):
+        r = per_launch(rows)
+        bound(r)
+        log_kernel(f"{name}, large path (the scale recording's {STRIDE_US // 1000} ms stride windows)", r)
+        out[name] = r
+    return out
+
+
 def cluster_accum_cost(x, y, valid, *, cell_size, grid_w, grid_h, width, height) -> dict:
     """Bytes and operations the rows entry must move and do on these
     ``(W, E)`` events: x, y and valid of every event and t of each
@@ -402,11 +554,13 @@ def patch_metrics_cost(batch, clusters, *, width, height) -> dict:
     arguments. Bytes: x, y and valid of the events of each window that
     holds a valid slot, the valid flag of every slot, centroids and count
     of each valid slot, six floats out per slot. Operations: per window
-    that holds a valid slot, a sort of its in-sensor valid events (2 log2
-    n each) and about 8 per such event for the runs, c, leaders and bins;
-    per valid slot ~8 per event of the window (offsets, compares,
-    atomics), ~25 per pixel for the Sobel, e2, sqrt and three reductions,
-    2 per pixel for the edge pass, ~320 for the epilogue."""
+    that holds a valid slot, a sort of its w in-sensor valid events (2
+    log2 w each) and about 8 per such event for the runs, c, leaders and
+    bins; per valid slot, a binary search of the sorted events for each of
+    its 48 patch rows (2 log2 w each), ~8 per event inside its patch
+    (offsets, compares, atomics: only the events the patch holds, not the
+    window's), ~25 per pixel for the Sobel, e2, sqrt and three
+    reductions, 2 per pixel for the edge pass, ~320 for the epilogue."""
     from repro_torch.core import metrics as M
 
     n_win, e = batch.x.shape
@@ -414,11 +568,18 @@ def patch_metrics_cost(batch, clusters, *, width, height) -> dict:
     busy = clusters.valid.any(-1)
     n_valid = int(clusters.valid.sum())
     n_busy = int(busy.sum())
-    w = (batch.valid & (batch.x >= 0) & (batch.x < width) & (batch.y >= 0)
-         & (batch.y < height))[busy].sum(-1).double()  # (busy,)
+    inb = batch.valid & (batch.x >= 0) & (batch.x < width) & (batch.y >= 0) & (batch.y < height)
+    w = inb[busy].sum(-1).double()  # (busy,)
     sort_ops = int((w * (2 * w.clamp_min(2).log2().ceil() + 8)).sum())
+    x0, y0 = M.window_origin(clusters.centroid_x, clusters.centroid_y, width, height)
+    wi, ki = clusters.valid.nonzero(as_tuple=True)  # the valid slots
+    dx = batch.x[wi] - x0[wi, ki][:, None]
+    dy = batch.y[wi] - y0[wi, ki][:, None]
+    in_patch = int((inb[wi] & (dx >= 0) & (dx < M.WINDOW) & (dy >= 0) & (dy < M.WINDOW)).sum())
+    w_slot = inb[wi].sum(-1).double()
+    search_ops = int((M.WINDOW * 2 * w_slot.clamp_min(2).log2().ceil()).sum())
     return dict(bytes=n_busy * e * 9 + n_win * k * (1 + 24) + n_valid * 12,
-                ops=sort_ops + n_valid * (8 * e + 27 * M.WINDOW * M.WINDOW + 320),
+                ops=sort_ops + search_ops + 8 * in_patch + n_valid * (27 * M.WINDOW * M.WINDOW + 320),
                 valid_slots=n_valid, busy_windows=n_busy)
 
 
@@ -763,6 +924,143 @@ def compare_runs(gpu, cpu, what: str) -> None:
         close(getattr(rg.tracks, f), getattr(rc.tracks, f), f"{what}: tracks.{f}",
               TRACK_RTOL, TRACK_ATOL)
     require(sg == sc, f"{what}: scores differ: {sg} vs {sc}")
+
+
+def check_loop_driver(rec, cfg, name: str, own, dev) -> dict:
+    """The loop driver (``run_recording``: one window core call per
+    window) on the card: every window's clusters, metrics and tracks equal
+    to ``run_recording_scan``'s on the card, and each of the path's
+    kernels launched exactly once per window. Returns its launches."""
+    import torch
+
+    from repro_torch.core.pipeline import run_recording, run_recording_scan
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loop = run_recording(rec, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(ops.LAUNCHES)
+    scan = run_recording_scan(rec, cfg, device=dev)
+    n = len(loop)
+    require(n == scan.num_windows > 0, f"loop driver ({name}): {n} windows, scan {scan.num_windows}")
+    for w, (a, b) in enumerate(zip(loop, scan.window_results())):
+        require(a.t_start_us == b.t_start_us, f"loop driver ({name}) window {w}: t_start_us")
+        for f in a.clusters._fields:
+            equal(getattr(a.clusters, f), getattr(b.clusters, f), f"loop driver ({name}) window {w}: {f}")
+        for k in a.metrics:
+            equal(torch.as_tensor(a.metrics[k]), torch.as_tensor(b.metrics[k]),
+                  f"loop driver ({name}) window {w}: {k}")
+        for f in a.tracks._fields:
+            equal(getattr(a.tracks, f), getattr(b.tracks, f), f"loop driver ({name}) window {w}: tracks.{f}")
+    require(all(counts[k] == (n if k in own else 0) for k in counts),
+            f"loop driver ({name}): launches {counts} over {n} windows, expected one of each of {own} a window")
+    log(f"[3] quickstart, loop driver (run_recording), {name} path: {n} windows in {wall:.1f} ms, every "
+        f"window's clusters, metrics and tracks equal to run_recording_scan's on the card; launches "
+        f"{counts}, one per window of each of {own}")
+    return counts
+
+
+def check_sweep(cfg, fixed, dev) -> dict:
+    """``threshold_sweep(make_validation_suite())`` on the card, float
+    kernel and fixed megakernel configs, with the scan and the fleet
+    driver: every threshold's score printed; the float scores equal to the
+    JAX reference's (``SWEEP_EXPECT``), both drivers equal and equal to the
+    port's CPU run; the fixed scores equal to their CPU run. Returns the
+    float scan sweep's launches and wall times."""
+    import torch
+
+    from repro_torch.core.pipeline import threshold_sweep
+    from repro_torch.data.synthetic import make_validation_suite
+    from repro_torch.kernels import ops
+
+    suite = make_validation_suite()
+    log(f"[3] validation suite: {len(suite)} recordings of 2 s, {sum(len(r) for r in suite)} events")
+    out, scores = {}, {}
+    # The fleet driver decodes its ragged wire with event_unpack under
+    # use_kernels (the float kernel config).
+    paths = (("float kernel", cfg, {"scan": FLOAT_KERNELS, "fleet": FLEET_KERNELS}),
+             ("fixed megakernel", fixed, {"scan": FIXED_KERNELS, "fleet": FIXED_KERNELS}))
+    for name, c, own_of in paths:
+        for driver, own in own_of.items():
+            walls = []
+            for _ in range(2):  # the first call pays the allocator's and the fleet's set-up
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sw = threshold_sweep(suite, SWEEP_THRESHOLDS, c, driver=driver, device=dev)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(ops.LAUNCHES)
+            got = {t: (s.tp, s.fp, s.fn, s.tn) for t, s in sw.items()}
+            scores[name, driver] = got
+            require(all((counts[k] > 0) == (k in own) for k in counts),
+                    f"sweep ({name}, {driver}): launches {counts}, expected {own}")
+            log(f"    sweep, {name}, {driver} driver, cuda: wall {walls[0]:.1f} ms first, {walls[1]:.1f} ms "
+                f"second; launches {counts}; min_events -> tp/fp/fn/tn (accuracy): " + ", ".join(
+                    f"{t}: {'/'.join(map(str, v))} ({sw[t].accuracy:.4f})" for t, v in got.items()))
+            if name == "float kernel" and driver == "scan":
+                out = dict(launches=counts, wall_ms=walls)
+        cpu = threshold_sweep(suite, SWEEP_THRESHOLDS, c, device="cpu")
+        cpu = {t: (s.tp, s.fp, s.fn, s.tn) for t, s in cpu.items()}
+        require(scores[name, "scan"] == scores[name, "fleet"] == cpu,
+                f"sweep ({name}): scan {scores[name, 'scan']}, fleet {scores[name, 'fleet']}, cpu {cpu}")
+    require(scores["float kernel", "scan"] == SWEEP_EXPECT,
+            f"sweep (float kernel): {scores['float kernel', 'scan']}, the reference's {SWEEP_EXPECT}")
+    same = scores["fixed megakernel", "scan"] == scores["float kernel", "scan"]
+    log(f"    sweep scores equal to the JAX reference's at every threshold (threshold 5: "
+        f"{'/'.join(map(str, SWEEP_EXPECT[5]))}), scan = fleet = the CPU run on both datapaths; the "
+        f"fixed path's scores {'equal' if same else 'differ from'} the float path's"
+        + ("" if same else f": fixed {scores['fixed megakernel', 'scan']}"))
+    return out
+
+
+def check_stride_scale(rec, cfg, win, dev) -> dict:
+    """The scale recording in 100 ms stride windows at capacity 4096
+    through ``run_recording_scan`` untracked, float kernel config, on the
+    card (the stage kernels' large path) and on the CPU: every integer
+    equal, centroid_t within ``ref.centroid_t_bound`` of each valid slot's
+    cell (sized by the cell's exact sum of |t| over the conditioned
+    windows, so identical where that is below 2^24), metrics at the
+    stated tolerances; the window core's time. Returns the card run's
+    launches."""
+    import torch
+
+    from repro_torch.core.events import pad_windows
+    from repro_torch.core.pipeline import run_recording_scan
+    from repro_torch.core.pipeline.window_core import _condition
+    from repro_torch.kernels import ops, ref
+
+    ops.reset_launches()
+    gpu = run_recording_scan(rec, cfg, with_tracking=False, windows=win, device=dev)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    cpu_win = pad_windows(rec.x, rec.y, rec.t, rec.p, cfg.batcher, "cpu", policy="stride",
+                          window_us=STRIDE_US)
+    t0 = time.perf_counter()
+    cpu = run_recording_scan(rec, cfg, with_tracking=False, windows=cpu_win, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n = gpu.num_windows
+    require(n == cpu.num_windows > 0, "stride scale: window counts differ")
+    require(not cfg.merge_neighbors, "stride scale: merged clusters span cells; the bound is per cell")
+    g = cfg.grid
+    b = _condition(cfg, cpu_win.batch)  # what the clustering stage sees
+    abs_t = ref.abs_t_rows(b.x, b.y, b.t, b.valid, cell_size=g.cell_size, grid_w=g.grid_w,
+                           grid_h=g.grid_h, width=g.width, height=g.height)
+    t_diff = within_centroid_t_bound(gpu.clusters, cpu.clusters, abs_t, g, "stride scale")
+    err = compare_metrics(gpu.metrics, cpu.metrics, "stride scale")
+    events = win.batch.valid.sum(-1).double()
+    core_ms, _ = best_ms(lambda: run_recording_scan(rec, cfg, with_tracking=False, windows=win, device=dev))
+    require(counts["cluster_accum"] == counts["patch_metrics"] > 0, f"stride scale launches {counts}")
+    log(f"[4] scale recording in {STRIDE_US // 1000} ms stride windows at capacity {STRIDE_CAPACITY} "
+        f"(float kernel config, untracked): {n} windows of {events.mean():.0f} events on average (at most "
+        f"{int(events.max())}), {int(gpu.clusters.valid.sum())} valid clusters; integer outputs equal to "
+        f"the CPU run ({cpu_s:.1f} s), centroid_t within its bound (largest difference "
+        f"{t_diff:.3g} us), metrics max abs err {err:.3e}; window core {core_ms:.2f} ms "
+        f"(best of 3); launches cluster_accum {counts['cluster_accum']}, patch_metrics "
+        f"{counts['patch_metrics']}")
+    return dict(counts, window_core_ms=core_ms, windows=n)
 
 
 def summary(result, score, cfg) -> dict:
@@ -1329,6 +1627,13 @@ def main() -> int:
     log(f"[2] kernels vs plain versions on the card, main-path blocks "
         f"{[tuple(b.x.shape) for b, _ in blocks]}")
     kernels = check_kernels(dev, blocks)
+    large_err = check_large_sizes(dev)
+    for name in FLOAT_KERNELS:
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], large_err[name])
+    kernels["cluster_accum"]["max_abs_err"] = max(kernels["cluster_accum"]["max_abs_err"],
+                                                  large_err["centroid_t"])
+    stride, stride_win, stride_cfg = stride_blocks(scale, cfg, dev)
+    large_rows = time_large(stride)
     kernels["window_pipeline"] = check_window_pipeline(dev, raws, fixed)
     fleet_recs = [make_recording(seed=11 + s, **FLEET) for s in range(FLEET_SENSORS)]
     ops.reset_launches()
@@ -1356,6 +1661,9 @@ def main() -> int:
         quick.update({k: counts[k] for k in own})
     quick["event_unpack"] = check_quick_fleet(cfg, "float", FLEET_KERNELS, dev)["event_unpack"]
     check_quick_fleet(fixed, "fixed", FIXED_KERNELS, dev)
+    for name, c, own in (("float", cfg, FLOAT_KERNELS), ("fixed", fixed, FIXED_KERNELS)):
+        check_loop_driver(rec, c, name, own, dev)
+    sweep = check_sweep(cfg, fixed, dev)
 
     # Phase 4: each path at real scale. The kernels line's launches are
     # this phase's: one pass of the scale recording through each path's
@@ -1389,6 +1697,7 @@ def main() -> int:
         + ", ".join(f"{k} ({h:.2f}, {d:.2f}, {sp:.2f})" for k, (h, d, sp) in prof["ranges"].items())
         + "; device kernels per block: " + ", ".join(f"{k} {v}" for k, v in prof["kernels"].items()))
     require_one_launch_per_block(prof, len(raws), "scan window core")
+    stride_run = check_stride_scale(scale, stride_cfg, stride_win, dev)
 
     fixed_counts = check_fixed_scale(scale, fixed, staged, dev, times["window core"])
     launches.update({k: fixed_counts[k] for k in FIXED_KERNELS})
@@ -1431,6 +1740,14 @@ def main() -> int:
             row["launches_on"] = LAUNCH_BASIS[name]
             # Rule 2's ranking: launches x (alone - bound), in ms.
             row["score_ms"] = launches[name] * (r["ms"] - r["bound_ms"])
+        if name in large_rows:  # the large path, per launch on the stride windows
+            lg = large_rows[name]
+            row["large_path"] = dict(
+                launches=stride_run[name], ms=lg["ms"], call_ms=lg["call_ms"], plain_ms=lg["plain_ms"],
+                bound_ms=lg["bound_ms"], bound_by=lg["bound_by"], library_ms=None, timed_on=str(lg["shape"]),
+                launches_on=f"run_recording_scan of the scale recording in {STRIDE_US // 1000} ms stride "
+                            f"windows at capacity {STRIDE_CAPACITY} (float, untracked)",
+            )
         if name in stream_rows:  # the same kernel per launch on the ragged stream
             st = stream_rows[name]
             row["stream"] = dict(
@@ -1440,6 +1757,9 @@ def main() -> int:
                 launches_on=LAUNCH_BASIS["event_unpack"], removed_ops_ms=st["removed_ms"],
             )
         rows.append(row)
+    log(f"[5] threshold_sweep on the card (float kernel, scan driver): launches {sweep['launches']}, "
+        f"wall {sweep['wall_ms'][1]:.1f} ms; stride-window scale run: window core "
+        f"{stride_run['window_core_ms']:.2f} ms over {stride_run['windows']} windows")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ The port of ``repro.core.events``:
 * events are (x, y, t, polarity) tuples from a 640x480 event camera;
 * the 32-bit wire word has ``x = bits[15:0]`` and ``y = bits[31:16]``;
 * conditioning = the ROI filter plus persistent-event (hot pixel) removal;
-* windows close after ``time_threshold_us`` OR ``size_threshold`` events;
+* windows close after ``time_threshold_us`` OR ``size_threshold`` events
+  (the dual policy), or every ``window_us`` of wall time (the stride
+  policy), stacked by :func:`pad_windows` or one at a time
+  (:func:`dual_threshold_batches`, :func:`window_batches`);
 * the ragged ingest wire (packed words, 16-bit deltas, a polarity
   bitplane, CSR offsets and an exact int32 spill lane) and its decoder.
 
@@ -18,7 +21,7 @@ Conditioning runs on a written-out window axis: every function here takes
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Sequence
+from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +51,37 @@ class EventBatch(NamedTuple):
 
     def count(self) -> torch.Tensor:
         return self.valid.sum(-1, dtype=torch.int32)
+
+
+def make_empty_batch(
+    capacity: int = DEFAULT_CAPACITY, device: str | torch.device = DEFAULT_DEVICE
+) -> EventBatch:
+    """An all-invalid ``(capacity,)`` window on ``device``."""
+    z = torch.zeros((capacity,), dtype=torch.int32, device=resolve_device(device))
+    return EventBatch(z, z, z, z, torch.zeros((capacity,), dtype=torch.bool, device=z.device))
+
+
+def batch_from_arrays(
+    x: np.ndarray,
+    y: np.ndarray,
+    t: np.ndarray,
+    p: np.ndarray,
+    capacity: int = DEFAULT_CAPACITY,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> EventBatch:
+    """Pad or truncate host arrays into one ``(capacity,)`` window on
+    ``device``, as the reference packs it: the ``len(x) - capacity``
+    trailing events are dropped (the stacked path counts them in
+    ``WindowedEvents.overflow``)."""
+    dev = resolve_device(device)
+    n = min(len(x), capacity)
+    pad = capacity - n
+
+    def prep(a):
+        return torch.from_numpy(np.pad(np.asarray(a[:n], np.int32), (0, pad))).to(dev)
+
+    valid = torch.from_numpy(np.pad(np.ones(n, bool), (0, pad))).to(dev)
+    return EventBatch(prep(x), prep(y), prep(t), prep(p), valid)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +148,25 @@ def persistent_event_filter(batch: EventBatch, max_repeats: int = 8) -> EventBat
             counts[rows] = (same & vb[:, None, :]).sum(-1, dtype=torch.int32)
         counts = counts.reshape(*lead, e)
     return batch._replace(valid=batch.valid & (counts <= max_repeats))
+
+
+def persistent_event_filter_hist(
+    batch: EventBatch,
+    max_repeats: int = 8,
+    width: int = SENSOR_WIDTH,
+    height: int = SENSOR_HEIGHT,
+) -> EventBatch:
+    """The histogram oracle for :func:`persistent_event_filter`: each
+    window scattered into a sensor-sized per-pixel count, the original
+    O(sensor area) form, kept to hold the event-space filter to the bit.
+    Takes ``(..., E)`` windows of in-sensor events."""
+    e = batch.x.shape[-1]
+    flat = (batch.y.to(torch.int64) * width + batch.x.to(torch.int64)).reshape(-1, e)
+    v = batch.valid.reshape(-1, e)
+    counts = torch.zeros((flat.shape[0], height * width), dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(-1, flat, v.to(torch.int32))
+    keep = (torch.gather(counts, -1, flat) <= max_repeats).reshape(batch.valid.shape)
+    return batch._replace(valid=batch.valid & keep)
 
 
 _SENTINEL = 0xFFFFFFFF
@@ -283,6 +336,40 @@ def stride_bounds(
     return bounds
 
 
+def dual_threshold_batches(
+    x: np.ndarray,
+    y: np.ndarray,
+    t: np.ndarray,
+    p: np.ndarray,
+    config: BatcherConfig = BatcherConfig(),
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> Iterator[tuple[EventBatch, slice]]:
+    """One ``(capacity,)`` window on ``device`` at a time over a
+    time-sorted recording, under the dual-threshold policy (250 events or
+    20 ms): yields ``(batch, slice_into_recording)``, the reference's
+    windows to the bit."""
+    for start, end in dual_threshold_bounds(t, config):
+        sl = slice(start, end)
+        yield batch_from_arrays(x[sl], y[sl], t[sl] - t[start], p[sl], config.capacity,
+                                device), sl
+
+
+def window_batches(
+    x: np.ndarray,
+    y: np.ndarray,
+    t: np.ndarray,
+    p: np.ndarray,
+    window_us: int = DEFAULT_TIME_THRESHOLD_US,
+    capacity: int = DEFAULT_CAPACITY,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> Iterator[tuple[EventBatch, slice]]:
+    """Fixed-stride windows of ``window_us``, one ``(capacity,)`` window
+    on ``device`` at a time, times relative to the stride start."""
+    for lo, hi, w0 in stride_bounds(t, window_us):
+        sl = slice(lo, hi)
+        yield batch_from_arrays(x[sl], y[sl], t[sl] - w0, p[sl], capacity, device), sl
+
+
 class WindowedEvents(NamedTuple):
     """A recording pre-windowed into ``(W, capacity)`` planes.
 
@@ -398,12 +485,23 @@ def pad_windows(
     p: np.ndarray,
     config: BatcherConfig = BatcherConfig(),
     device: str | torch.device = DEFAULT_DEVICE,
+    policy: str = "dual",
+    window_us: int | None = None,
 ) -> WindowedEvents:
-    """Slice a time-sorted recording into dual-threshold ``(W, capacity)``
-    windows: the same boundaries, relative timestamps and truncation as
-    the reference's ``pad_windows(policy="dual")``."""
+    """Slice a time-sorted recording into ``(W, capacity)`` windows on
+    ``device``, with the same boundaries, relative timestamps and
+    truncation as the reference's ``pad_windows``: ``policy="dual"``
+    gives :func:`dual_threshold_batches`' windows, ``policy="stride"``
+    :func:`window_batches`' (strides of ``window_us``, by default the
+    batcher's time threshold). Events past a window's capacity are
+    counted in ``overflow``."""
     x, y, t, p = (np.asarray(a) for a in (x, y, t, p))
-    bounds = [(s, e, int(t[s])) for s, e in dual_threshold_bounds(t, config)]
+    if policy == "dual":
+        bounds = [(s, e, int(t[s])) for s, e in dual_threshold_bounds(t, config)]
+    elif policy == "stride":
+        bounds = stride_bounds(t, window_us or config.time_threshold_us)
+    else:
+        raise ValueError(f"unknown windowing policy: {policy!r}")
     return pack_bounds(x, y, t, p, bounds, config.capacity, device)
 
 

@@ -396,3 +396,14 @@ def fixed_window_stage(
 
     fc, mets, _ = window_pipeline_ref(batch, config)
     return fc, mets
+
+
+def make_fixed_process_window(config: PipelineConfig):
+    """The per-window fixed stage returning the float cluster struct, a
+    drop-in for ``make_process_window``: one ``(E,)`` window in, ``(K,)``
+    clusters and metrics out. Under ``metrics_impl="megakernel"`` it is
+    one ``window_pipeline`` launch a window on the card."""
+    from repro_torch.core.pipeline.window_core import _fixed_window_core, _one_window
+
+    _check_fixed_config(config)
+    return _one_window(lambda batch: _fixed_window_core(config, batch))

@@ -1,9 +1,20 @@
 """Accuracy evaluation (paper Sec. V-A: detections vs ground truth).
 
-The port of the part of ``repro.core.pipeline.evaluate`` that
-:func:`evaluate_detection` needs: one pipeline run at the candidate
-floor, truth matching of every (window, slot, RSO) triple in float32 on
-the run's device like the reference, then host bookkeeping and scoring.
+The port of ``repro.core.pipeline.evaluate``: a pipeline run at the
+candidate floor, truth matching of every (window, slot, RSO) triple in
+float32 on the run's device like the reference, then host bookkeeping
+and scoring. :func:`collect_candidates` runs one recording;
+:func:`collect_candidates_many` a whole suite through one core call of
+:func:`run_many_scan`'s stacking and one batched match;
+:func:`collect_candidates_fleet` the same suite through the live fleet
+engine, one feed and one flush. :func:`threshold_sweep` scores every
+threshold from one collection (the paper's Fig. 10b). The host oracles
+are in :mod:`repro_torch.core.pipeline.oracles`.
+
+Precision: the device matcher gates in float32, the numpy oracle in
+float64, so the two agree except for a centroid within float32 rounding
+(about 1e-4 px) of the 14 px gate, which the continuous synthetic suite
+does not hit; the tests pin agreement on that suite.
 """
 from __future__ import annotations
 
@@ -14,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.core.grid_clustering import Clusters
 from repro_torch.core.pipeline.config import PipelineConfig
-from repro_torch.core.pipeline.scan import run_recording_scan
+from repro_torch.core.pipeline.scan import _many_scan_raw, run_recording_scan
 
 if TYPE_CHECKING:
     from repro_torch.data.synthetic import Recording
@@ -79,22 +91,42 @@ def track_positions(tracks, ts):
     return px, py
 
 
-def _match_core(counts, valid, cx, cy, ct, t_start, tracks, gate_px: float, max_samples: int):
+def _match_core(counts, valid, cx, cy, ct, t_start, tracks, gate_px: float, max_samples):
     """Match every (window, slot) centroid against every RSO trajectory,
-    in float32. Returns ``(is_rso (W, K), keep (W, K), best (W, R))``:
-    ``keep`` marks the window-major candidate prefix under
-    ``max_samples``, ``best`` the max kept count matched to each pair."""
-    t_ev = t_start[:, None] + ct  # (W, K) us, recording-relative
-    ts = t_ev[:, :, None] * 1e-6  # seconds, (W, K, 1)
-    px, py = track_positions(tracks[None, None, :, :], ts)  # (W, K, R)
-    dx = px - cx[:, :, None]
-    dy = py - cy[:, :, None]
+    in float32. Takes ``(..., W, K)`` clusters, ``(..., W)`` window
+    origins, ``(..., R, 6)`` trajectories and an int or ``(...)`` tensor
+    ``max_samples``, a leading axis batching recordings. Returns
+    ``(is_rso (..., W, K), keep (..., W, K), best (..., W, R))``: ``keep``
+    marks the window-major candidate prefix under ``max_samples``,
+    ``best`` the max kept count matched to each (window, RSO) pair."""
+    t_ev = t_start[..., :, None] + ct  # (..., W, K) us, recording-relative
+    ts = t_ev[..., None] * 1e-6  # seconds, (..., W, K, 1)
+    px, py = track_positions(tracks[..., None, None, :, :], ts)  # (..., W, K, R)
+    dx = px - cx[..., None]
+    dy = py - cy[..., None]
     matched = torch.sqrt(dx * dx + dy * dy) <= gate_px
-    flat_valid = valid.reshape(-1)
-    rank = torch.cumsum(flat_valid.to(torch.int32), 0) - 1
-    keep = (flat_valid & (rank < max_samples)).reshape(valid.shape)
-    contrib = torch.where(matched & keep[:, :, None], counts[:, :, None], 0)
-    return matched.any(-1), keep, contrib.amax(1)
+    flat_valid = valid.flatten(-2)
+    rank = torch.cumsum(flat_valid.to(torch.int32), -1) - 1
+    ms = torch.as_tensor(max_samples, device=rank.device)
+    keep = (flat_valid & (rank < ms[..., None])).reshape(valid.shape)
+    contrib = torch.where(matched & keep[..., None], counts[..., None], 0)
+    return matched.any(-1), keep, contrib.amax(-2)
+
+
+# Padding trajectory for batched matching over recordings with different
+# RSO counts: parked far outside the sensor, zero velocity, so it never
+# gates.
+_FAR_TRACK = (1e9, 1e9, 0.0, 0.0, 0.0, 0.0)
+
+
+def _pad_tracks(tracks: list[np.ndarray]) -> np.ndarray:
+    """``(R_i, 6)`` float32 trajectory tables stacked to ``(N, R_max, 6)``,
+    padded with :data:`_FAR_TRACK` rows."""
+    r_max = max((t.shape[0] for t in tracks), default=0)
+    if not r_max:
+        return np.zeros((len(tracks), 0, 6), np.float32)
+    far = np.float32(_FAR_TRACK)
+    return np.stack([np.concatenate([t, np.tile(far, (r_max - t.shape[0], 1))]) for t in tracks])
 
 
 def _rebase_times(
@@ -187,6 +219,108 @@ def collect_candidates(
     )
 
 
+def _match_suite(recordings, cl, t_grid, rows, stops, tracks, max_samples, gate_px,
+                 min_truth_events) -> list[Candidates]:
+    """One batched match over a suite's stacked ``(R, W, K)`` clusters:
+    recording r's real windows are the rows ``rows[r]`` of its block, with
+    origins ``t_grid[r, rows[r]]`` (float32, rebased), window stops
+    ``stops[r]`` and rebased trajectories ``tracks[r]``; the other rows
+    hold no valid cluster. Returns each recording's candidates."""
+    dev = cl.count.device
+    k = cl.count.shape[-1]
+    ms = [len(r) * k if max_samples is None else max_samples for r in rows]
+    is_rso, keep, best = _match_core(
+        cl.count, cl.valid, cl.centroid_x, cl.centroid_y, cl.centroid_t,
+        torch.as_tensor(t_grid, device=dev), torch.as_tensor(_pad_tracks(tracks), device=dev),
+        gate_px, torch.as_tensor(ms, dtype=torch.int32, device=dev),
+    )
+    counts, is_rso, keep, best = (a.cpu().numpy() for a in (cl.count, is_rso, keep, best))
+    return [
+        _assemble_candidates(rec, stops[r], counts[r][rows[r]], is_rso[r][rows[r]],
+                             keep[r][rows[r]], best[r][rows[r]][:, :tracks[r].shape[0]],
+                             min_truth_events)
+        for r, rec in enumerate(recordings)
+    ]
+
+
+def collect_candidates_many(
+    recordings: list[Recording],
+    config: PipelineConfig = PipelineConfig(),
+    candidate_floor: int = 2,
+    max_samples: int | None = None,
+    gate_px: float = 14.0,
+    min_truth_events: int = 3,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> list[Candidates]:
+    """Candidates for a whole suite: one core call over every recording's
+    windows (stacked and padded to a common count, as :func:`run_many_scan`
+    does) and one batched match (trajectories padded to a common RSO count
+    with far-away parked tracks). Each recording's result equals
+    :func:`collect_candidates` of it; padded windows hold no valid cluster
+    and padded tracks never gate."""
+    if not recordings:
+        return []
+    windowed, (_, clusters, _, _) = _many_scan_raw(
+        recordings, _floor_config(config, candidate_floor), False, device)
+    t_grid = np.zeros(clusters.count.shape[:2], np.float32)
+    rows, tracks = [], []
+    for r, (rec, w) in enumerate(zip(recordings, windowed)):
+        t_rel, shifted = _rebase_times(w.t_start_us, rec.rso_tracks)
+        t_grid[r, :w.num_windows] = t_rel
+        rows.append(np.arange(w.num_windows))
+        tracks.append(shifted)
+    return _match_suite(recordings, clusters, t_grid, rows, [w.stops for w in windowed], tracks,
+                        max_samples, gate_px, min_truth_events)
+
+
+def collect_candidates_fleet(
+    recordings: list[Recording],
+    config: PipelineConfig = PipelineConfig(),
+    candidate_floor: int = 2,
+    max_samples: int | None = None,
+    gate_px: float = 14.0,
+    min_truth_events: int = 3,
+    mesh=None,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> list[Candidates]:
+    """Candidates for a whole suite through the live fleet engine: each
+    recording is one sensor of a ``FleetPipeline(with_tracking=False)``
+    over the ragged wire, fed whole in one round, then flushed, and one
+    batched match runs over the stacked fleet outputs. Padded window rows
+    hold no valid cluster, so each recording's result equals
+    :func:`collect_candidates_many`'s. ``mesh`` raises, as the fleet does
+    (not ported yet)."""
+    from repro_torch.core.pipeline.fleet import FleetPipeline
+
+    if not recordings:
+        return []
+    fleet = FleetPipeline(_floor_config(config, candidate_floor), n_sensors=len(recordings),
+                          with_tracking=False, mesh=mesh, device=device)
+    head = fleet.feed([(r.x, r.y, r.t, r.p) for r in recordings])
+    tail = fleet.flush()
+    parts = [p for p in (head, tail) if p.clusters is not None]
+    if not parts:  # nothing closed anywhere (all-empty recordings)
+        empty = lambda: Candidates(np.zeros(0, np.int32), np.zeros(0, bool), np.zeros(0, np.int32))  # noqa: E731
+        return [empty() for _ in recordings]
+    cl = Clusters(*(torch.cat(f, dim=1) for f in zip(*(p.clusters for p in parts))))
+    # Sensor s fills rows [0, n_head) of the feed's block and [w_head,
+    # w_head + n_tail) of the flush's.
+    offsets = np.cumsum([0] + [p.clusters.count.shape[1] for p in parts])[:-1]
+    t_grid = np.zeros(cl.count.shape[:2], np.float32)
+    rows, stops, tracks = [], [], []
+    for s, rec in enumerate(recordings):
+        t_rel, shifted = _rebase_times(
+            np.concatenate([p.windows[s].t_start_us for p in parts]), rec.rso_tracks)
+        rows.append(np.concatenate(
+            [off + np.arange(int(p.n_windows[s])) for off, p in zip(offsets, parts)]
+        ).astype(np.int64))
+        t_grid[s, rows[-1]] = t_rel
+        stops.append(np.concatenate([p.windows[s].stops for p in parts]))
+        tracks.append(shifted)
+    return _match_suite(recordings, cl, t_grid, rows, stops, tracks, max_samples, gate_px,
+                        min_truth_events)
+
+
 def score_threshold(cand: Candidates, thr: int) -> DetectionScore:
     passed = cand.counts >= thr
     return DetectionScore(
@@ -194,6 +328,14 @@ def score_threshold(cand: Candidates, thr: int) -> DetectionScore:
         fp=int(np.sum(passed & ~cand.is_rso)),
         fn=int(np.sum(cand.object_best < thr)),
         tn=int(np.sum(~passed & ~cand.is_rso)),
+    )
+
+
+def merge_candidates(cands: list[Candidates]) -> Candidates:
+    return Candidates(
+        np.concatenate([c.counts for c in cands]) if cands else np.zeros(0, np.int32),
+        np.concatenate([c.is_rso for c in cands]) if cands else np.zeros(0, bool),
+        np.concatenate([c.object_best for c in cands]) if cands else np.zeros(0, np.int32),
     )
 
 
@@ -212,3 +354,29 @@ def evaluate_detection(
         recording, config, candidate_floor, max_samples, device=device
     )
     return score_threshold(cand, thr)
+
+
+def threshold_sweep(
+    recordings: list[Recording],
+    thresholds: tuple[int, ...] = (2, 3, 4, 5, 6, 8, 10),
+    config: PipelineConfig = PipelineConfig(),
+    max_samples_per_recording: int | None = None,
+    driver: str = "scan",
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> dict[int, DetectionScore]:
+    """Accuracy against ``min_events`` over a validation suite (the
+    paper's Fig. 10b): candidates collected once, every threshold scored
+    on the host. ``driver="scan"`` collects through one stacked core call
+    (:func:`collect_candidates_many`), ``driver="fleet"`` through the live
+    fleet engine (:func:`collect_candidates_fleet`); the scores are the
+    same."""
+    if driver == "scan":
+        cands = collect_candidates_many(
+            recordings, config, max_samples=max_samples_per_recording, device=device)
+    elif driver == "fleet":
+        cands = collect_candidates_fleet(
+            recordings, config, max_samples=max_samples_per_recording, device=device)
+    else:
+        raise ValueError(f"unknown threshold_sweep driver: {driver!r}")
+    cand = merge_candidates(cands)
+    return {thr: score_threshold(cand, thr) for thr in thresholds}

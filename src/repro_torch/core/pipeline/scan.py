@@ -15,8 +15,10 @@ the window axis, every sensor at once. The reference's straight core
 core is not yet, so the persistent atlas rides the carry untouched, as
 on the reference's straight route, in the reference's shape, so carries
 convert across the two packages. :func:`run_recording_scan` is one core
-call over a whole recording with a fresh carry; the streaming and fleet
-drivers call it feed after feed.
+call over a whole recording with a fresh carry; :func:`run_many_scan` one
+core call over a batch of recordings, their windows stacked along a
+leading recording axis; the streaming and fleet drivers call the core
+feed after feed.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from repro_torch.core.pipeline.config import (
     _metrics_fn,
     check_supported,
 )
-from repro_torch.core.pipeline.window_core import _fixed_window_core, _window_core
+from repro_torch.core.pipeline.window_core import WindowResult, _fixed_window_core, _window_core
 from repro_torch.core.tracking import TrackState, init_tracks, track_recording
 
 if TYPE_CHECKING:
@@ -63,6 +65,20 @@ class ScanResult:
     @property
     def num_windows(self) -> int:
         return int(self.t_start_us.shape[0])
+
+    def window_results(self) -> list[WindowResult]:
+        """The loop driver's per-window list (metrics copied to the host),
+        for window-by-window comparisons."""
+        mets = {k: v.cpu().numpy() for k, v in self.metrics.items()}
+        return [
+            WindowResult(
+                t_start_us=int(self.t_start_us[w]),
+                clusters=Clusters(*(a[w] for a in self.clusters)),
+                metrics={k: v[w] for k, v in mets.items()},
+                tracks=None if self.tracks is None else TrackState(*(a[w] for a in self.tracks)),
+            )
+            for w in range(self.num_windows)
+        ]
 
 
 def atlas_shape(config: PipelineConfig, capacity: int | None = None) -> tuple[int, int]:
@@ -160,3 +176,70 @@ def run_recording_scan(
         final_tracks=final,
         windows=windows,
     )
+
+
+def _many_scan_raw(
+    recordings: list[Recording],
+    config: PipelineConfig,
+    with_tracking: bool,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> tuple[list[WindowedEvents], tuple]:
+    """Window each recording on the host, right-pad every one with empty
+    (all-invalid) windows to the longest one's count, stack them into
+    ``(R, W_max, capacity)`` planes (one copy to ``device`` per plane) and
+    run the core once from a fresh carry per recording. Returns the
+    per-recording windowing (planes on the host) and the untrimmed core
+    outputs ``(final, clusters, mets, states)``, leaves ``(R, W_max, ...)``."""
+    dev = resolve_device(device)
+    windowed = [pad_windows(r.x, r.y, r.t, r.p, config.batcher, "cpu") for r in recordings]
+    w_max = max(w.num_windows for w in windowed)
+
+    def pad_leaf(a: torch.Tensor) -> torch.Tensor:
+        return torch.cat([a, a.new_zeros((w_max - a.shape[0],) + a.shape[1:])])
+
+    stacked = EventBatch(*(
+        torch.stack([pad_leaf(getattr(w.batch, f)) for w in windowed]).to(dev)
+        for f in EventBatch._fields
+    ))
+    fresh = init_tracks(config.tracker, dev)
+    state = TrackState(*(a.new_zeros((len(recordings),) + tuple(a.shape)) for a in fresh))
+    final, clusters, mets, states, _ = make_core(config, with_tracking)(
+        stacked, state, make_atlas(config, windowed[0].capacity, dev), 0)
+    return windowed, (final, clusters, mets, states)
+
+
+def run_many_scan(
+    recordings: list[Recording],
+    config: PipelineConfig = PipelineConfig(),
+    with_tracking: bool = True,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> list[ScanResult]:
+    """One core call over a batch of recordings on ``device``: windowed
+    on the host, padded with empty windows to a common count and stacked,
+    so the window stages run over every recording's windows in blocks and
+    the tracker steps every recording at once. Results are split back per
+    recording and trimmed to its own windows; with tracking,
+    ``final_tracks`` is the state after its last real window, not after
+    the padded tail."""
+    if not recordings:
+        return []
+    windowed, (_, clusters, mets, states) = _many_scan_raw(
+        recordings, config, with_tracking, device)
+    results: list[ScanResult] = []
+    for r, w in enumerate(windowed):
+        n = w.num_windows
+        if not with_tracking:
+            final_r = None
+        elif n == 0:
+            final_r = init_tracks(config.tracker, clusters.count.device)
+        else:
+            final_r = TrackState(*(a[r, n - 1] for a in states))
+        results.append(ScanResult(
+            t_start_us=w.t_start_us,
+            clusters=Clusters(*(a[r, :n] for a in clusters)),
+            metrics={k: v[r, :n] for k, v in mets.items()},
+            tracks=TrackState(*(a[r, :n] for a in states)) if with_tracking else None,
+            final_tracks=final_r,
+            windows=w,
+        ))
+    return results

@@ -1,7 +1,8 @@
-"""The per-window stage: conditioning -> clustering -> metrics.
+"""The per-window stage (conditioning -> clustering -> metrics), and the
+loop driver.
 
-The port of ``repro.core.pipeline.window_core``'s ``_condition``,
-``_cluster`` and ``_window_core``, written over a window axis: the stages
+The port of ``repro.core.pipeline.window_core``. ``_condition``,
+``_cluster`` and ``_window_core`` are written over a window axis: the stages
 of one window do not depend on another window's, so each runs over a
 whole ``(W, E)`` block of windows at once, and each kernel launches once
 per block, not once per window: on the float kernel route
@@ -10,18 +11,45 @@ metrics stage are one launch each. Each stage runs inside a
 ``torch.profiler.record_function`` range named after it, so a profile
 of any entry point splits its time by stage; the fixed datapath's
 megakernel runs inside one range, ``"fixed window core"``.
+
+:func:`run_recording` is the loop driver: the reference's dual-threshold
+windows one at a time, each through the window core as a ``(1, E)``
+block (so on the kernel routes each kernel launches once per window),
+then one tracker step, with a host copy of the metrics per window. The
+per-window stage and the tracker step are memoized per config
+(:func:`make_process_window`, :func:`_tracker_fn`), as in the reference.
+It is the baseline the scan and stream drivers are held to, window for
+window.
 """
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+import functools
+from typing import TYPE_CHECKING, Callable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core.events import EventBatch, persistent_event_filter, roi_filter
+from repro_torch import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.events import (
+    EventBatch,
+    dual_threshold_batches,
+    persistent_event_filter,
+    roi_filter,
+)
 from repro_torch.core.fixed_point import fixed_window_stage
 from repro_torch.core.grid_clustering import Clusters, clusters_from_histogram, merge_adjacent
-from repro_torch.core.pipeline.config import PipelineConfig
+from repro_torch.core.pipeline.config import (
+    PipelineConfig,
+    _histogram_fn,
+    _metrics_fn,
+    check_supported,
+)
+from repro_torch.core.tracking import TrackerConfig, TrackState, init_tracks, tracker_step
+
+if TYPE_CHECKING:
+    from repro_torch.data.synthetic import Recording
 
 
 def _condition(config: PipelineConfig, batch: EventBatch) -> EventBatch:
@@ -76,3 +104,73 @@ def _fixed_window_core(
     else:
         fc, mets = fixed_window_stage(config, batch)
     return fc.to_clusters(), mets
+
+
+def _one_window(window_fn: Callable[[EventBatch], tuple]) -> Callable[[EventBatch], tuple]:
+    """``window_fn`` over ``(W, E)`` windows as a function of one ``(E,)``
+    window: it runs as a ``(1, E)`` block, and the ``(K,)`` clusters and
+    metrics come back."""
+
+    def process_window(batch: EventBatch) -> tuple[Clusters, dict[str, torch.Tensor]]:
+        clusters, mets = window_fn(EventBatch(*(a[None] for a in batch)))
+        return Clusters(*(a[0] for a in clusters)), {k: v[0] for k, v in mets.items()}
+
+    return process_window
+
+
+@functools.lru_cache(maxsize=None)
+def make_process_window(config: PipelineConfig = PipelineConfig()):
+    """The per-window stage for ``config``: one ``(E,)`` window in,
+    ``(K,)`` clusters and the metric dict out, on the window's device.
+    Memoized per config, as the reference's jit'd closure is."""
+    check_supported(config)
+    if config.numerics == "fixed":
+        from repro_torch.core.fixed_point import make_fixed_process_window
+
+        return make_fixed_process_window(config)
+    hist_fn, metrics_fn = _histogram_fn(config), _metrics_fn(config)
+    return _one_window(lambda batch: _window_core(config, hist_fn, metrics_fn, batch))
+
+
+@functools.lru_cache(maxsize=None)
+def _tracker_fn(config: TrackerConfig):
+    """The tracker step for ``config`` (memoized per tracker config)."""
+    return functools.partial(tracker_step, config=config)
+
+
+@dataclasses.dataclass
+class WindowResult:
+    t_start_us: int
+    clusters: Clusters  # (K,) tensors on the run's device
+    metrics: dict[str, np.ndarray]
+    tracks: TrackState | None = None
+
+
+def run_recording(
+    recording: Recording,
+    config: PipelineConfig = PipelineConfig(),
+    with_tracking: bool = True,
+    device: str | torch.device = DEFAULT_DEVICE,
+) -> list[WindowResult]:
+    """The loop driver on ``device``: dual-threshold windows one at a
+    time, each through the window core and the tracker, the metrics
+    copied to the host per window. See :func:`run_recording_scan` for one
+    call over the whole recording."""
+    dev = resolve_device(device)
+    process_window = make_process_window(config)
+    tracker_fn = _tracker_fn(config.tracker)
+    state = init_tracks(config.tracker, dev)
+    results: list[WindowResult] = []
+    for batch, sl in dual_threshold_batches(
+        recording.x, recording.y, recording.t, recording.p, config.batcher, dev
+    ):
+        clusters, mets = process_window(batch)
+        if with_tracking:
+            state, _ = tracker_fn(state, clusters, mets["shannon_entropy"])
+        results.append(WindowResult(
+            t_start_us=int(recording.t[sl.start]),
+            clusters=clusters,
+            metrics={k: v.cpu().numpy() for k, v in mets.items()},
+            tracks=state if with_tracking else None,
+        ))
+    return results

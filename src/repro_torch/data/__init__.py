@@ -6,4 +6,5 @@ from repro_torch.data.synthetic import (  # noqa: F401
     LENS_CONFIGS,
     Recording,
     make_recording,
+    make_validation_suite,
 )

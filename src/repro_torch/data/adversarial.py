@@ -54,11 +54,11 @@ def adversarial_batch(device: str | torch.device = "cpu", e: int = 256) -> Event
                       torch.as_tensor(v, device=device))
 
 
-def edge_slot_clusters(batch: EventBatch) -> Clusters:
-    """Clusters at ``min_events=1`` from each window of ``batch`` (plain
-    cluster_accum), with the first slots forced onto the sensor's corners
-    (valid, 7 events, none nearby) and the last two slots invalid."""
-    g = GridConfig(min_events=1)
+def edge_slot_clusters(batch: EventBatch, k: int = 32) -> Clusters:
+    """``k`` clusters at ``min_events=1`` from each window of ``batch``
+    (plain cluster_accum), with the first slots forced onto the sensor's
+    corners (valid, 7 events, none nearby) and the last two slots invalid."""
+    g = GridConfig(min_events=1, max_clusters=k)
     hist = ref.cluster_accum_ref(
         batch.x, batch.y, batch.t, batch.valid,
         cell_size=16, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480,
@@ -166,6 +166,57 @@ def run_and_tie_windows(seed: int = 7, e: int = 256, hot_pixel_max: int = 12) ->
     for _ in range(3):
         out.append(pad(rng.integers(20, 80, e), rng.integers(20, 60, e)))
     return out
+
+
+def large_windows(capacity: int, n_windows: int = 3, seed: int = 0, t_max: int = 100_000) -> list:
+    """Host windows ``(x, y, t, valid)`` of ``capacity`` events (the last
+    one half full) for the kernels' large-size paths: a dense 16 px cell
+    holding an eighth of the events at window-relative t near ``t_max``
+    (its t sum passes 2^24 from about 170 events at 100,000 us), a hot
+    pixel of 40 repeats, ten clumps, and the rest spread over the sensor,
+    so most cells hold an event (more than 1,024 counted cells at 16 px
+    and 4,096 events); 5% invalid and 2% outside the sensor."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for w in range(n_windows):
+        n = capacity if w < n_windows - 1 else capacity // 2
+        n_dense, n_hot, n_clump = n // 8, 40, 10 * max(1, n // 160)
+        n_rest = n - n_dense - n_hot - n_clump
+        centers = rng.integers(40, 600, (10, 2)) % [600, 440]
+        pick = rng.integers(0, 10, n_clump)
+        x = np.concatenate([
+            rng.integers(320, 336, n_dense), np.full(n_hot, 100),
+            centers[pick, 0] + rng.integers(-8, 9, n_clump), rng.integers(0, 640, n_rest)])
+        y = np.concatenate([
+            rng.integers(240, 256, n_dense), np.full(n_hot, 100),
+            centers[pick, 1] + rng.integers(-8, 9, n_clump), rng.integers(0, 480, n_rest)])
+        t = np.concatenate([rng.integers(t_max - 5_000, t_max, n_dense),
+                            rng.integers(0, t_max, n - n_dense)])
+        order = rng.permutation(n)
+        x, y, t = x[order], y[order], t[order]
+        out_of_sensor = rng.random(n) < 0.02
+        x = np.where(out_of_sensor, rng.integers(-50, 700, n), x)
+        y = np.where(out_of_sensor, rng.integers(-50, 540, n), y)
+        x, y, t, v = _pad_window(x, y, t, capacity)
+        out.append((x, y, t, v & (rng.random(capacity) > 0.05)))
+    return out
+
+
+def sum_t_window(capacity: int = 1024, seed: int = 3) -> tuple:
+    """One window whose cell t sums pass 2^24 = 16,777,216: 600 events of
+    one 16 px cell at window-relative t in [95,000, 100,000) (a sum near
+    5.8e7), 168 of another at t = 100,000 (16,800,000, just past 2^24)
+    and 167 of a third (16,700,000, just below), beside 60 scattered
+    events at small t."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.integers(320, 336, 600), rng.integers(96, 112, 168),
+                        rng.integers(400, 416, 167), rng.integers(0, 640, 60)])
+    y = np.concatenate([rng.integers(240, 256, 600), rng.integers(96, 112, 168),
+                        rng.integers(288, 304, 167), rng.integers(0, 480, 60)])
+    t = np.concatenate([rng.integers(95_000, 100_000, 600), np.full(335, 100_000),
+                        rng.integers(0, 1_000, 60)])
+    order = rng.permutation(len(x))
+    return _pad_window(x[order], y[order], t[order], capacity)
 
 
 def stacked_batch(windows, device: str | torch.device = "cpu") -> EventBatch:

@@ -47,6 +47,17 @@ class Recording:
     def __len__(self) -> int:
         return len(self.t)
 
+    def rso_position(self, rso: int, t_us: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """RSO ``rso``'s position (float64 px) at times ``t_us``."""
+        tr = np.asarray(self.rso_tracks[rso], np.float64)
+        x0, y0, vx, vy = tr[:4]
+        ax, ay = (tr[4], tr[5]) if tr.shape[0] >= 6 else (0.0, 0.0)
+        ts = np.asarray(t_us, np.float64) * 1e-6
+        return (
+            x0 + vx * ts + 0.5 * ax * ts * ts,
+            y0 + vy * ts + 0.5 * ay * ts * ts,
+        )
+
 
 def _poisson_times(rng: np.random.Generator, rate_hz: float, duration_us: int) -> np.ndarray:
     n = rng.poisson(rate_hz * duration_us * 1e-6)
@@ -143,3 +154,23 @@ def make_recording(
         duration_us=duration_us,
         name=name or f"synthetic-{lens}-seed{seed}",
     )
+
+
+def make_validation_suite(
+    n_recordings: int = 6, duration_s: float = 2.0, seed0: int = 100
+) -> list[Recording]:
+    """Six recordings x three lens types, the paper's Sec. V-A suite: the
+    reference's seeds, lenses, names and arrays."""
+    suite = []
+    for i in range(n_recordings):
+        for li, lens in enumerate(LENS_CONFIGS):
+            suite.append(
+                make_recording(
+                    seed=seed0 + 17 * i + 251 * li,
+                    duration_s=duration_s,
+                    n_rsos=1 + (i % 3),
+                    lens=lens,
+                    name=f"rec{i}-{lens}",
+                )
+            )
+    return suite

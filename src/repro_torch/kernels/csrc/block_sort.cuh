@@ -9,6 +9,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -117,6 +119,70 @@ __device__ void bitonic_sort(Key (&v)[Items], int n, PingPong<Key>& pp) {
       }
     }
   }
+}
+
+// Sorts, ascending and in place, the n keys (n a power of two) at a, which
+// may lie in shared or in device memory: each step of the bitonic network
+// is a pass of compare-exchanges over the n / 2 pairs, then a barrier (a
+// barrier orders the block's device memory accesses too). The large-size
+// paths of the kernels take it where a window's keys outgrow the register
+// sort above. Every thread of the block calls it; it ends on a barrier.
+template <typename Key>
+__device__ void memory_bitonic_sort(Key* a, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += kThreads) {
+        const int lo = 2 * j * (i / j) + (i % j);  // bit j of lo is clear
+        const Key a0 = a[lo], a1 = a[lo + j];
+        if ((a0 > a1) == !(lo & k)) {
+          a[lo] = a1;
+          a[lo + j] = a0;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Dynamic shared memory a CTA may take without raising a kernel's limit.
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// Dynamic shared memory one CTA of Kernel may take on the current device
+// (the opt-in limit less the kernel's static shared memory), with the
+// kernel's own limit raised to it. Asked once per device and kept, so a
+// plan or a launch after the first makes no runtime call but
+// cudaGetDevice. 0 where it cannot be had: launches then stay within
+// kDefaultSmem and larger data go to device scratch.
+template <auto Kernel>
+size_t dynamic_smem_limit() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<long long> known[kMaxDevices];  // limit + 1; 0: not asked yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  long long v = known[dev].load(std::memory_order_relaxed);
+  if (v == 0) {
+    int optin = 0;
+    cudaFuncAttributes fa{};
+    size_t lim = 0;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) ==
+            cudaSuccess &&
+        cudaFuncGetAttributes(&fa, Kernel) == cudaSuccess &&
+        optin > static_cast<int>(fa.sharedSizeBytes)) {
+      lim = static_cast<size_t>(optin) - fa.sharedSizeBytes;
+      if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(lim)) != cudaSuccess) {
+        lim = 0;
+      }
+    }
+    if (lim == 0) cudaGetLastError();  // leave no error for the next launch to report
+    v = static_cast<long long>(lim) + 1;
+    known[dev].store(v, std::memory_order_relaxed);
+  }
+  return static_cast<size_t>(v - 1);
+}
+
+__host__ __device__ __forceinline__ size_t round_up(size_t v, size_t m) {
+  return (v + m - 1) / m * m;
 }
 
 // Inclusive block-wide sums (uint32, wrapping) of N values per element,

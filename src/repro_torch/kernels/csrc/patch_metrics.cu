@@ -58,6 +58,18 @@
 // contrast carry a tolerance in the tests (tests/test_torch_kernels.py
 // models this order in numpy and holds it to that tolerance).
 //
+// Two paths, picked at launch from the sizes. The small one (E <= 1024,
+// K <= 128, the main path's) is the above: keys sorted in registers, one
+// thread per slot in step 1. The large one takes any E and any K: step 1
+// strides over the slots (a slot's origin is computed where the slot
+// runs); step 3 sorts the keys in place in memory by a bitonic network of
+// compare-exchange passes, and each run's first event finds the run's end
+// by a binary search over the sorted keys, so c needs no scan. The events
+// and keys (12 bytes an event, 4 or 8 a key) lie in dynamic shared memory
+// up to the card's 227 KB a CTA (E up to about 8,000 at 640 x 480), past
+// that in a per-window scratch area in device memory that the wrapper
+// allocates; the code is the same, only the base pointer differs.
+//
 // What bounds it on the H100: bytes. It reads x, y and valid of the
 // events of each window that holds a valid slot, the valid flag of every
 // slot and the centroids and count of each valid slot, and writes 24
@@ -81,7 +93,7 @@ constexpr int kPix = kWin * kWin;
 constexpr int kPixPerThread = kPix / kThreads;  // 9
 constexpr int kBins = 32;
 constexpr int kMetrics = 6;
-constexpr int kMaxEvents = 1024;
+constexpr int kMaxEvents = 1024;  // the small path's bounds
 constexpr int kMaxSlots = 128;
 constexpr float kEdgeThreshold = 0.25f;
 constexpr float kTwoPiE = 17.079468445347132f;  // 2 * pi * e
@@ -96,6 +108,10 @@ struct Params {
   int n_events, n_slots;
   int width, height;
   int ebits;  // key = pixel << ebits | event index
+  // Large path: the per-window scratch area in device memory (nullptr:
+  // dynamic shared memory).
+  unsigned char* scratch;
+  long long scratch_stride;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -118,20 +134,31 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
-template <typename Key, int Items>
+// A slot's patch origin: clip(rint(c) - 24, 0, extent - 48), rint
+// rounding half to even.
+__device__ __forceinline__ int origin(float c, int extent) {
+  return min(max(__float2int_rn(c) - kWin / 2, 0), extent - kWin);
+}
+
+template <typename Key, int Items, bool kLarge>
 __global__ void __launch_bounds__(kThreads) patch_metrics_kernel(
     const int32_t* __restrict__ x, const int32_t* __restrict__ y,
     const uint8_t* __restrict__ valid, const float* __restrict__ cx,
     const float* __restrict__ cy, const int32_t* __restrict__ count,
     const uint8_t* __restrict__ cvalid, const Params p, float* __restrict__ out) {
-  // Dynamic: two key buffers of sort_size(E) keys; x, y and the info word
-  // by event index.
+  // Dynamic (or, large path, per-window scratch): the keys, then x, y and
+  // the info word by event index. Small path: two key buffers of
+  // sort_size(E) keys; large path: one.
   extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* mem = smem;
+  if constexpr (kLarge) {
+    if (p.scratch) mem = p.scratch + static_cast<long long>(blockIdx.x) * p.scratch_stride;
+  }
   const int E = p.n_events;
   const int K = p.n_slots;
   const int n_max = sort_size(E);
-  Key* kbuf0 = reinterpret_cast<Key*>(smem);
-  Key* kbuf1 = kbuf0 + n_max;
+  Key* kbuf0 = reinterpret_cast<Key*>(mem);
+  Key* kbuf1 = kLarge ? kbuf0 : kbuf0 + n_max;
   int* ex = reinterpret_cast<int*>(kbuf1 + n_max);
   int* ey = ex + E;
   int* info = ey + E;
@@ -141,8 +168,8 @@ __global__ void __launch_bounds__(kThreads) patch_metrics_kernel(
   __shared__ uint32_t wsum[Items * kWarps];
   __shared__ float red_g[kWarps], red_e2[kWarps], red_mx[kWarps];
   __shared__ int red_s1[kWarps], red_s2[kWarps], red_edges[kWarps];
-  __shared__ int sl_x0[kMaxSlots], sl_y0[kMaxSlots];
-  __shared__ bool sl_ok[kMaxSlots];
+  __shared__ int sl_x0[kLarge ? 1 : kMaxSlots], sl_y0[kLarge ? 1 : kMaxSlots];
+  __shared__ bool sl_ok[kLarge ? 1 : kMaxSlots];
   __shared__ int s_nw, s_cmax;
 
   const int tid = threadIdx.x;
@@ -154,12 +181,21 @@ __global__ void __launch_bounds__(kThreads) patch_metrics_kernel(
 
   // 1. Slots. Invalid ones get their zeros here.
   bool ok = false;
-  if (tid < K) {
+  if constexpr (kLarge) {
+    for (int sl = tid; sl < K; sl += kThreads) {
+      if (cvalid[win * K + sl]) {
+        ok = true;
+      } else {
+#pragma unroll
+        for (int m = 0; m < kMetrics; ++m) o[m * plane + sl] = 0.0f;
+      }
+    }
+  } else if (tid < K) {
     const long long s = win * K + tid;
     ok = cvalid[s];
     if (ok) {
-      sl_x0[tid] = min(max(__float2int_rn(cx[s]) - kWin / 2, 0), p.width - kWin);
-      sl_y0[tid] = min(max(__float2int_rn(cy[s]) - kWin / 2, 0), p.height - kWin);
+      sl_x0[tid] = origin(cx[s], p.width);
+      sl_y0[tid] = origin(cy[s], p.height);
     } else {
 #pragma unroll
       for (int m = 0; m < kMetrics; ++m) o[m * plane + tid] = 0.0f;
@@ -201,7 +237,54 @@ __global__ void __launch_bounds__(kThreads) patch_metrics_kernel(
 
   // 3. Sort, pixel runs: c, leaders, norm, then each w event's info word.
   float nrm = 1.0f;
-  if (nw > 0) {
+  if constexpr (kLarge) {
+    if (nw > 0) {
+      const int n = sort_size(nw);
+      for (int e = nw + tid; e < n; e += kThreads) kbuf0[e] = ~static_cast<Key>(0);
+      __syncthreads();
+      memory_bitonic_sort(kbuf0, n);
+      // A run's first event leads; its run length c is found by a binary
+      // search for the first key of a higher pixel. The leader's info word
+      // holds -c until the normalizer is known.
+      const Key imask = (static_cast<Key>(1) << p.ebits) - 1;
+      int cmax = 0;
+      for (int e0 = 0; e0 < nw; e0 += kThreads) {
+        const int e = e0 + tid;
+        if (e < nw) {
+          const Key cur = kbuf0[e] >> p.ebits;
+          const int idx = static_cast<int>(kbuf0[e] & imask);
+          if (e == 0 || (kbuf0[e - 1] >> p.ebits) != cur) {
+            int lo = e + 1, hi = nw;  // the run ends at the first index in [lo, hi] off it
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if ((kbuf0[mid] >> p.ebits) == cur) {
+                lo = mid + 1;
+              } else {
+                hi = mid;
+              }
+            }
+            const int c = lo - e;
+            cmax = max(cmax, c);
+            info[idx] = -c;
+          } else {
+            info[idx] = kW;
+          }
+        }
+      }
+      cmax = warp_max(cmax);
+      if (lane == 0) atomicMax(&s_cmax, cmax);
+      __syncthreads();
+      nrm = static_cast<float>(max(s_cmax, 1));
+      for (int i = tid; i < E; i += kThreads) {
+        const int c = -info[i];
+        if (c > 0) {
+          const float b = __fmul_rn(__fdiv_rn(static_cast<float>(c), nrm),
+                                    static_cast<float>(kBins));
+          info[i] = kW | kLead | (min(max(static_cast<int>(b), 0), kBins - 1) << 2);
+        }
+      }
+    }
+  } else if (nw > 0) {
     const int n = sort_size(nw);
     const int items = n > kThreads ? n / kThreads : 1;
     Key v[Items];
@@ -285,8 +368,17 @@ __global__ void __launch_bounds__(kThreads) patch_metrics_kernel(
   // pixel count into multiplication by its float32 reciprocal.
   const float inv_n = __fdiv_rn(1.0f, static_cast<float>(kPix));
   for (int sl = 0; sl < K; ++sl) {
-    if (!sl_ok[sl]) continue;  // uniform over the block
-    const int x0 = sl_x0[sl], y0 = sl_y0[sl];
+    int x0, y0;
+    if constexpr (kLarge) {
+      const long long s = win * K + sl;
+      if (!cvalid[s]) continue;  // uniform over the block
+      x0 = origin(cx[s], p.width);
+      y0 = origin(cy[s], p.height);
+    } else {
+      if (!sl_ok[sl]) continue;  // uniform over the block
+      x0 = sl_x0[sl];
+      y0 = sl_y0[sl];
+    }
     for (int i = tid; i < E; i += kThreads) {
       const int inf = info[i];
       if (!inf) continue;
@@ -406,14 +498,15 @@ int bit_length(unsigned long long v) {
   return b;
 }
 
-template <typename Key, int Items>
-int launch(const Params& p, int n_windows, const void* x, const void* y, const void* valid,
-           const void* cx, const void* cy, const void* count, const void* cvalid, void* out,
-           cudaStream_t stream) {
-  // At most 2 * 1,024 * 8 + 3 * 1,024 * 4 = 28 KB: no opt-in needed.
-  const size_t smem = 2 * static_cast<size_t>(sort_size(p.n_events)) * sizeof(Key) +
-                      3 * static_cast<size_t>(p.n_events) * sizeof(int);
-  patch_metrics_kernel<Key, Items><<<n_windows, kThreads, smem, stream>>>(
+template <typename Key, int Items, bool kLarge>
+int launch(const Params& p, size_t smem, int n_windows, const void* x, const void* y,
+           const void* valid, const void* cx, const void* cy, const void* count,
+           const void* cvalid, void* out, cudaStream_t stream) {
+  constexpr auto kernel = patch_metrics_kernel<Key, Items, kLarge>;
+  if (smem > kDefaultSmem && smem > dynamic_smem_limit<kernel>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<n_windows, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(cx),
       static_cast<const float*>(cy), static_cast<const int32_t*>(count),
@@ -421,46 +514,98 @@ int launch(const Params& p, int n_windows, const void* x, const void* y, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Key>
-int launch_items(const Params& p, int n_windows, const void* x, const void* y,
-                 const void* valid, const void* cx, const void* cy, const void* count,
-                 const void* cvalid, void* out, cudaStream_t stream) {
-  return p.n_events <= kThreads
-             ? launch<Key, 1>(p, n_windows, x, y, valid, cx, cy, count, cvalid, out, stream)
-             : launch<Key, kMaxEvents / kThreads>(p, n_windows, x, y, valid, cx, cy, count,
-                                                  cvalid, out, stream);
-}
-
-}  // namespace
-
-// Events (n_windows, n_events): x, y int32; valid bool. Slots (n_windows,
-// n_slots): cx, cy float32 centroids; count int32; cvalid bool.
-// out: (6, n_windows, n_slots) float32.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for shapes the kernel does not take.
-extern "C" int patch_metrics_launch(
-    const void* x, const void* y, const void* valid, const void* cx, const void* cy,
-    const void* count, const void* cvalid, int n_windows, int n_events, int n_slots,
-    int width, int height, void* out, void* stream) {
-  if (n_events < 0 || n_events > kMaxEvents || n_slots < 0 || n_slots > kMaxSlots ||
-      width < 1 || height < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_windows == 0 || n_slots == 0) return 0;
-  Params p;
+Params make_params(int n_events, int n_slots, int width, int height) {
+  Params p{};
   p.n_events = n_events;
   p.n_slots = n_slots;
   p.width = width;
   p.height = height;
   p.ebits = bit_length(static_cast<unsigned long long>(n_events > 0 ? n_events - 1 : 0));
-  const int bits =
-      bit_length(static_cast<unsigned long long>(width) * static_cast<unsigned long long>(height) - 1) +
-      p.ebits;
+  return p;
+}
+
+// Where a launch runs: the small path, or the large path with its events
+// and keys in dynamic shared memory or in per-window device scratch; and
+// the key width (64 bits where pixel and index bits pass 32).
+struct Plan {
+  bool large, wide;
+  size_t smem;           // dynamic shared memory bytes
+  size_t scratch_bytes;  // per window, in device memory; 0: none
+};
+
+Plan plan(const Params& p) {
+  Plan pl{};
+  const unsigned long long pixels =
+      static_cast<unsigned long long>(p.width) * static_cast<unsigned long long>(p.height);
+  pl.wide = bit_length(pixels - 1) + p.ebits > 32;
+  const size_t key = pl.wide ? sizeof(unsigned long long) : sizeof(uint32_t);
+  const size_t events = 3 * static_cast<size_t>(p.n_events) * sizeof(int);
+  if (p.n_events <= kMaxEvents && p.n_slots <= kMaxSlots) {
+    // At most 2 * 1,024 * 8 + 3 * 1,024 * 4 = 28 KB: no opt-in needed.
+    pl.smem = 2 * static_cast<size_t>(sort_size(p.n_events)) * key + events;
+    return pl;
+  }
+  pl.large = true;
+  const size_t bytes = round_up(static_cast<size_t>(sort_size(p.n_events)) * key + events, 16);
+  if (bytes <= kDefaultSmem ||
+      bytes <= (pl.wide ? dynamic_smem_limit<patch_metrics_kernel<unsigned long long, 1, true>>()
+                        : dynamic_smem_limit<patch_metrics_kernel<uint32_t, 1, true>>())) {
+    pl.smem = bytes;
+  } else {
+    pl.scratch_bytes = bytes;
+  }
+  return pl;
+}
+
+template <typename Key>
+int launch_path(const Plan& pl, const Params& p, int n_windows, const void* x, const void* y,
+                const void* valid, const void* cx, const void* cy, const void* count,
+                const void* cvalid, void* out, cudaStream_t stream) {
+  if (pl.large)
+    return launch<Key, 1, true>(p, pl.smem, n_windows, x, y, valid, cx, cy, count, cvalid, out,
+                                stream);
+  return p.n_events <= kThreads
+             ? launch<Key, 1, false>(p, pl.smem, n_windows, x, y, valid, cx, cy, count, cvalid,
+                                     out, stream)
+             : launch<Key, kMaxEvents / kThreads, false>(p, pl.smem, n_windows, x, y, valid, cx,
+                                                         cy, count, cvalid, out, stream);
+}
+
+}  // namespace
+
+// Bytes of device scratch per window that a launch with these sizes needs
+// (0: none); the wrapper allocates n_windows times that and passes it to
+// the launch.
+extern "C" long long patch_metrics_scratch_bytes(int n_events, int n_slots, int width,
+                                                 int height) {
+  if (n_events < 0 || n_slots < 0 || width < 1 || height < 1) return 0;
+  return static_cast<long long>(plan(make_params(n_events, n_slots, width, height)).scratch_bytes);
+}
+
+// Events (n_windows, n_events): x, y int32; valid bool. Slots (n_windows,
+// n_slots): cx, cy float32 centroids; count int32; cvalid bool.
+// scratch: n_windows * patch_metrics_scratch_bytes(...) bytes, or null
+// where that is 0. out: (6, n_windows, n_slots) float32.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int patch_metrics_launch(
+    const void* x, const void* y, const void* valid, const void* cx, const void* cy,
+    const void* count, const void* cvalid, int n_windows, int n_events, int n_slots,
+    int width, int height, void* out, void* scratch, void* stream) {
+  if (n_events < 0 || n_slots < 0 || width < 1 || height < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_windows == 0 || n_slots == 0) return 0;
+  Params p = make_params(n_events, n_slots, width, height);
+  const Plan pl = plan(p);
+  if (pl.scratch_bytes) {
+    if (!scratch) return static_cast<int>(cudaErrorInvalidValue);
+    p.scratch = static_cast<unsigned char*>(scratch);
+    p.scratch_stride = static_cast<long long>(pl.scratch_bytes);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits <= 32)
-    return launch_items<uint32_t>(p, n_windows, x, y, valid, cx, cy, count, cvalid, out, st);
-  if (bits <= 64)
-    return launch_items<unsigned long long>(p, n_windows, x, y, valid, cx, cy, count, cvalid,
-                                            out, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return pl.wide ? launch_path<unsigned long long>(pl, p, n_windows, x, y, valid, cx, cy, count,
+                                                   cvalid, out, st)
+                 : launch_path<uint32_t>(pl, p, n_windows, x, y, valid, cx, cy, count, cvalid,
+                                         out, st);
 }

@@ -80,7 +80,7 @@ def cluster_accum_topk(
     ``clusters_from_histogram(*cluster_accum(...), grid)`` returns, the
     ``(W, K)`` top-K clusters. On the card it takes x, y, t int32 and valid
     bool, contiguous, as the drivers hand them over (the kernel's wrapper
-    raises on anything else), and raises for E > 1024 or K > 128."""
+    raises on anything else), any E and any K in [1, n_cells]."""
     if t.is_floating_point():
         raise TypeError("cluster_accum_topk takes integer window-relative t")
     if _route(x) == "cpu":
@@ -105,7 +105,7 @@ def patch_metrics(
     frame normalizer and patch origins included. Returns the metric dict
     keyed by ``METRIC_NAMES``, each ``(W, K)``. On the card it takes the
     types the window core hands over (the kernel's wrapper raises on
-    anything else) and raises for E > 1024 or K > 128."""
+    anything else), any E and any K."""
     window = M.WINDOW if window is None else window
     bins = M.HIST_BINS if bins is None else bins
     if _route(batch.x) == "cpu":

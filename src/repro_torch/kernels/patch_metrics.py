@@ -19,8 +19,13 @@ shared memory, sorts the in-sensor ones by (pixel, index) once, reads
 coincidence counts, leaders and the normalizer off the pixel runs (no
 (E, E) pass), then runs its valid slots one after another: patch,
 histogram, Sobel and the six metrics, the patch in shared memory and the
-per-pixel values in registers. The source note in
-``csrc/patch_metrics.cu`` has the steps.
+per-pixel values in registers. At E <= 1024 and K <= 128 (the main path)
+the sort runs in registers; past either the kernel's large path sorts in
+memory, finds each run's end by a binary search and strides over the
+slots, so no E and no K is refused. Past about 8,000 events a window
+(shared memory's 227 KB) the events and keys go to per-window scratch in
+device memory, which the wrapper allocates at the size the library asks
+for. The source note in ``csrc/patch_metrics.cu`` has the steps.
 """
 from __future__ import annotations
 
@@ -33,22 +38,24 @@ from repro_torch.kernels import _build
 
 WINDOW = 48  # compiled into the kernel
 BINS = 32
-MAX_EVENTS = 1024  # the block sort's bound, as the megakernel's
-MAX_SLOTS = 128
 
-_fn = None
+_fns: dict = {}
+_scratch_bytes: dict = {}  # (device, sizes) -> bytes a window
 _EVENT_DTYPES = (torch.int32, torch.int32, torch.bool)
 _SLOT_DTYPES = (torch.float32, torch.float32, torch.int32, torch.bool)
 
 
 def _launcher():
-    global _fn
-    if _fn is None:
-        fn = _build.load("patch_metrics").patch_metrics_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    if not _fns:
+        lib = _build.load("patch_metrics")
+        fn = lib.patch_metrics_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        q = lib.patch_metrics_scratch_bytes
+        q.argtypes = [ctypes.c_int] * 4
+        q.restype = ctypes.c_longlong
+        _fns.update(launch=fn, scratch=q)
+    return _fns["launch"]
 
 
 def patch_metrics(batch, clusters, *, width: int, height: int) -> dict[str, torch.Tensor]:
@@ -57,8 +64,8 @@ def patch_metrics(batch, clusters, *, width: int, height: int) -> dict[str, torc
     ``batch.valid`` bool; ``clusters.centroid_x``/``centroid_y`` ``(W, K)``
     float32, ``count`` int32, ``valid`` bool. Returns the metric dict keyed
     by ``METRIC_NAMES``, each ``(W, K)`` float32, views of one buffer.
-    Raises ``TypeError`` for another dtype, ``ValueError`` for another
-    layout, for E > 1024 and for K > 128."""
+    Raises ``TypeError`` for another dtype and ``ValueError`` for another
+    layout; takes any E and any K."""
     events = (batch.x, batch.y, batch.valid)
     slots = (clusters.centroid_x, clusters.centroid_y, clusters.count, clusters.valid)
     x = batch.x
@@ -76,14 +83,18 @@ def patch_metrics(batch, clusters, *, width: int, height: int) -> dict[str, torc
                     f"patch_metrics takes contiguous {shape} tensors on one CUDA device, got "
                     f"{tuple(a.shape)} on {a.device}"
                 )
-    if e > MAX_EVENTS:
-        raise ValueError(f"E ({e}) exceeds the kernel's bound ({MAX_EVENTS})")
-    if k > MAX_SLOTS:
-        raise ValueError(f"K ({k}) exceeds the kernel's bound ({MAX_SLOTS})")
     out = torch.empty((len(M.METRIC_NAMES), n_win, k), dtype=torch.float32, device=x.device)
-    err = _build.launch_on(index, lambda stream: _launcher()(
+    launch = _launcher()
+    key = (index, e, k, width, height)
+    per = _scratch_bytes.get(key)
+    if per is None:  # asked once per device and sizes
+        per = _scratch_bytes[key] = _build.launch_on(
+            index, lambda _stream: _fns["scratch"](e, k, width, height))
+    scratch = (torch.empty(n_win * per, dtype=torch.uint8, device=x.device)
+               if per and n_win and k else None)
+    err = _build.launch_on(index, lambda stream: launch(
         *(a.data_ptr() for a in events + slots), n_win, e, k, width, height,
-        out.data_ptr(), stream,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), stream,
     ))
     _build.check(err, "patch_metrics")
     return dict(zip(M.METRIC_NAMES, out.unbind(0)))

@@ -18,6 +18,20 @@ from repro_torch.core.grid_clustering import Clusters, GridConfig, clusters_from
 unpack_wire_ref = unpack_wire
 
 
+def _cells(xi, yi, valid, cell_size, grid_w, grid_h, width, height):
+    """Each event's flat cell (int64) and whether it counts (valid and in
+    the sensor; ``width`` and ``height`` default to the grid's extent),
+    over ``(rows, E)`` coordinates. Out-of-sensor events are masked,
+    never clipped into a cell."""
+    width = grid_w * cell_size if width is None else width
+    height = grid_h * cell_size if height is None else height
+    cx = torch.div(xi, cell_size, rounding_mode="floor")
+    cy = torch.div(yi, cell_size, rounding_mode="floor")
+    flat = torch.clamp(cy * grid_w + cx, 0, grid_w * grid_h - 1).to(torch.int64)
+    inb = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height)
+    return flat, valid.reshape(xi.shape) & inb
+
+
 def cluster_accum_ref(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -33,18 +47,12 @@ def cluster_accum_ref(
     """Quantize + per-cell count, sum_x, sum_y, sum_t over ``(..., E)``
     events. Out-of-sensor events are masked, never clipped into a cell.
     Returns count int32 and three float32 tensors, each ``(..., n_cells)``."""
-    width = grid_w * cell_size if width is None else width
-    height = grid_h * cell_size if height is None else height
     n_cells = grid_w * grid_h
     e = x.shape[-1]
     lead = x.shape[:-1]
     xi = x.to(torch.int32).reshape(-1, e)
     yi = y.to(torch.int32).reshape(-1, e)
-    cx = torch.div(xi, cell_size, rounding_mode="floor")
-    cy = torch.div(yi, cell_size, rounding_mode="floor")
-    flat = torch.clamp(cy * grid_w + cx, 0, n_cells - 1).to(torch.int64)
-    inb = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height)
-    v = valid.reshape(-1, e) & inb
+    flat, v = _cells(xi, yi, valid, cell_size, grid_w, grid_h, width, height)
     vf = v.to(torch.float32)
 
     def acc(vals: torch.Tensor) -> torch.Tensor:
@@ -56,6 +64,60 @@ def cluster_accum_ref(
     sum_y = acc(vf * yi.to(torch.float32))
     sum_t = acc(vf * t.reshape(-1, e).to(torch.float32))
     return count, sum_x, sum_y, sum_t
+
+
+# Unit roundoff of float32.
+_U32 = 2.0 ** -24
+
+
+def abs_t_rows(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    t: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    cell_size: int,
+    grid_w: int,
+    grid_h: int,
+    width: int | None = None,
+    height: int | None = None,
+) -> torch.Tensor:
+    """The exact sum of |t| over each cell's events, as :func:`cluster_accum_ref`
+    bins them: ``(..., n_cells)`` int64. It sizes :func:`sum_t_bound`."""
+    n_cells = grid_w * grid_h
+    e = x.shape[-1]
+    xi = x.to(torch.int64).reshape(-1, e)
+    flat, v = _cells(xi, y.to(torch.int64).reshape(-1, e), valid, cell_size, grid_w, grid_h,
+                     width, height)
+    a = torch.where(v, t.to(torch.int64).reshape(-1, e).abs(), 0)
+    out = torch.zeros((xi.shape[0], n_cells), dtype=torch.int64, device=x.device)
+    return out.scatter_add_(-1, flat, a).reshape(*x.shape[:-1], n_cells)
+
+
+def sum_t_bound(count: torch.Tensor, abs_t_sum: torch.Tensor) -> torch.Tensor:
+    """The most two float32 routes of the cell sums may differ in sum_t,
+    for a cell of ``count`` events whose |t| sum to ``abs_t_sum``.
+
+    Below 2^24 every partial sum of integer t is exact in float32, so every
+    route (the reference's per-add float32 scatter, a one-hot matmul in any
+    order, the kernel's int64 sum rounded once) gives the same value: 0.
+    Above it a float32 sum of n terms in any order is within (n - 1) u
+    sum|t| of the exact sum (u = 2^-24, each partial sum at most sum|t|),
+    and the kernel's once-rounded sum within u sum|t|: (n + 1) u sum|t|.
+    Returns float64."""
+    n = count.to(torch.float64).clamp_min(1.0)
+    a = abs_t_sum.to(torch.float64)
+    return torch.where(a < 2.0 ** 24, 0.0, (n + 1.0) * _U32 * a)
+
+
+def centroid_t_bound(count: torch.Tensor, abs_t_sum: torch.Tensor) -> torch.Tensor:
+    """The most two float32 routes may differ in ``centroid_t`` = sum_t /
+    max(count, 1): :func:`sum_t_bound` over n, plus one rounding of each
+    quotient (at most u sum|t| / n each). Zero below sum|t| = 2^24, where
+    both routes divide the same exact sum. Returns float64."""
+    n = count.to(torch.float64).clamp_min(1.0)
+    a = abs_t_sum.to(torch.float64)
+    return torch.where(a < 2.0 ** 24, 0.0, (n + 3.0) * _U32 * a / n)
 
 
 def cluster_accum_topk_ref(

@@ -11,7 +11,13 @@ stage entry against ``clusters_from_histogram`` of the plain rows. The
 patch_metrics kernel is the whole metrics stage, held against its plain
 stage (normalizer, origins, per-slot metrics): event_count and
 edge_density exactly, the entropies and contrast to rtol = atol = 1e-5
-(order-dependent float32 reductions and log2). On the float kernel
+(order-dependent float32 reductions and log2). Both stage kernels take
+any E and any K: past their small path (E <= 1024, K <= 128) they are
+held to the same contract at E = 1025, 4096 and 20,000 and K = 160,
+except that where a cell's t sum passes 2^24 cluster_accum's sum_t and
+centroid_t (an exact int64 sum rounded once, against the plain version's
+float32 adds) are held to the bound ``kernels/ref.py:sum_t_bound`` and
+``centroid_t_bound`` state. On the float kernel
 route each block makes one launch in its clustering and one in its
 metrics stage, by the launch counters and under the profiler. The window_pipeline
 kernel emits integers only and shares the float epilogue with its plain
@@ -144,7 +150,7 @@ def test_cluster_accum_topk_kernel_matches_plain(cuda_dev):
 @pytest.mark.cuda
 def test_stage_kernels_refuse_what_they_do_not_take(cuda_dev):
     """No conversion on the card: another dtype raises TypeError, another
-    layout or an E over the bound ValueError; nothing is launched."""
+    layout or a K above n_cells ValueError; nothing is launched."""
     b = TE.EventBatch(*(a.to(cuda_dev) for a in _tbatch(*_windows())))
     cl = edge_slot_clusters(b)
     g = GridConfig()
@@ -153,17 +159,94 @@ def test_stage_kernels_refuse_what_they_do_not_take(cuda_dev):
         ops.cluster_accum_topk(b.x.long(), b.y, b.t, b.valid, g)
     with pytest.raises(ValueError):
         ops.cluster_accum_topk(b.x.t(), b.y.t(), b.t.t(), b.valid.t(), g)
+    with pytest.raises(ValueError):
+        ops.cluster_accum_topk(b.x, b.y, b.t, b.valid, GridConfig(max_clusters=g.n_cells + 1))
     with pytest.raises(TypeError):
         ops.patch_metrics(b, cl._replace(count=cl.count.long()))
     with pytest.raises(ValueError):
         ops.patch_metrics(b._replace(x=b.x.t().contiguous().t()), cl)
-    wide = torch.zeros((1, 1025), dtype=torch.int32, device=cuda_dev)
-    big = TE.EventBatch(wide, wide, wide, wide, wide.bool())
-    with pytest.raises(ValueError):
-        ops.cluster_accum_topk(wide, wide, wide, wide.bool(), g)
-    with pytest.raises(ValueError):
-        ops.patch_metrics(big, Clusters(*(a[:1] for a in cl)))
     assert sum(ops.LAUNCHES.values()) == 0
+
+
+# E past the small path's 1,024 (one over it, the capacity of the stride
+# windows, and past the 227 KB of shared memory that K3's events and keys
+# fit in); K past its 128; cell 4 puts K2's table past shared memory.
+LARGE_E = (1025, 4096, 20_000)
+LARGE_GRIDS = (GridConfig(), GridConfig(min_events=1, max_clusters=160),
+               GridConfig(cell_size=12, min_events=0, max_clusters=160))
+
+
+def _assert_clusters_within_bound(got, want, b, g, what):
+    """Every field identical except centroid_t, held to ``centroid_t_bound``
+    of the slot's cell (identical where the cell's t sum is below 2^24)."""
+    for f in Clusters._fields:
+        if f != "centroid_t":
+            assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
+    abs_t = ref.abs_t_rows(b.x, b.y, b.t, b.valid, cell_size=g.cell_size, grid_w=g.grid_w,
+                           grid_h=g.grid_h, width=g.width, height=g.height)
+    cell = (want.cell_y * g.grid_w + want.cell_x).clamp_min(0).long()
+    bound = torch.where(want.valid, ref.centroid_t_bound(want.count, abs_t.gather(-1, cell)), 0.0)
+    diff = (got.centroid_t.double() - want.centroid_t.double()).abs()
+    assert bool((diff <= bound).all()), (what, float((diff - bound).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", LARGE_E)
+def test_stage_kernels_take_any_size(cuda_dev, e):
+    """Past the small path's E <= 1024 and K <= 128 both stage kernels
+    equal their plain versions, as at the main path's sizes: every
+    cluster field identical (centroid_t within its stated bound where a
+    cell's t sum passes 2^24), event_count and edge_density identical, the
+    other metrics within 1e-5; one launch each."""
+    from repro_torch.data.adversarial import large_windows, stacked_batch
+
+    b = stacked_batch(large_windows(e, n_windows=2 if e > 4096 else 3), cuda_dev)
+    grids = LARGE_GRIDS + ((GridConfig(cell_size=4, min_events=1, max_clusters=160),) if e == 4096 else ())
+    for g in grids:
+        ops.reset_launches()
+        got = ops.cluster_accum_topk(b.x, b.y, b.t, b.valid, g)
+        assert ops.LAUNCHES["cluster_accum"] == 1
+        want = ref.cluster_accum_topk_ref(b.x, b.y, b.t, b.valid, g)
+        _assert_clusters_within_bound(got, want, b, g, (e, g))
+        kw = dict(cell_size=g.cell_size, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
+        rows = ops.cluster_accum(b.x, b.y, b.t, b.valid, **kw)
+        plain = ref.cluster_accum_ref(b.x, b.y, b.t, b.valid, **kw)
+        for a, p in zip(rows[:3], plain[:3]):
+            assert torch.equal(a, p), (e, g)
+        bound = ref.sum_t_bound(plain[0], ref.abs_t_rows(b.x, b.y, b.t, b.valid, **kw))
+        assert bool(((rows[3].double() - plain[3].double()).abs() <= bound).all()), (e, g)
+    for k in (32, 160):
+        cl = edge_slot_clusters(b, k)
+        ops.reset_launches()
+        got = ops.patch_metrics(b, cl)
+        assert ops.LAUNCHES["patch_metrics"] == 1
+        _assert_metrics_close(got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), (e, k))
+
+
+@pytest.mark.cuda
+def test_sum_t_past_two_to_the_24(cuda_dev):
+    """One cell of many events near t = 100,000 us: K2 sums t exactly in
+    int64 and rounds once, so its sum_t and centroid_t equal the exact
+    sum rounded to float32 (and divided in float32), and stay within the
+    stated bound of the plain version's float32 scatter."""
+    from repro_torch.data.adversarial import sum_t_window, stacked_batch
+
+    b = stacked_batch([sum_t_window()], cuda_dev)
+    g = GridConfig(min_events=1)
+    kw = dict(cell_size=16, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
+    rows = ops.cluster_accum(b.x, b.y, b.t, b.valid, **kw)
+    exact = ref.abs_t_rows(b.x, b.y, b.t, b.valid, **kw)  # t >= 0: the exact sums
+    assert int(exact.max()) > 2 ** 24
+    assert torch.equal(rows[3], exact.float())
+    plain = ref.cluster_accum_ref(b.x, b.y, b.t, b.valid, **kw)
+    assert bool(((rows[3].double() - plain[3].double()).abs() <= ref.sum_t_bound(plain[0], exact)).all())
+    got = ops.cluster_accum_topk(b.x, b.y, b.t, b.valid, g)
+    want = ref.cluster_accum_topk_ref(b.x, b.y, b.t, b.valid, g)
+    _assert_clusters_within_bound(got, want, b, g, "sum_t window")
+    cell = (got.cell_y * g.grid_w + got.cell_x).clamp_min(0).long()
+    n = got.count.float().clamp_min(1)
+    once = exact.gather(-1, cell).float() / n
+    assert torch.equal(got.centroid_t[got.valid], once[got.valid])
 
 
 @pytest.mark.cuda
@@ -261,6 +344,41 @@ def test_main_path_on_card_equals_cpu(cuda_dev, path):
     for f in ("hits", "misses", "age", "active"):
         assert torch.equal(getattr(gpu.tracks, f).cpu(), getattr(cpu.tracks, f)), f
     assert evaluate_detection(rec, cfg, device=cuda_dev) == evaluate_detection(rec, cfg, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "fixed"])
+def test_loop_driver_and_sweep_on_card(cuda_dev, path):
+    """The loop driver on the card equals its scan window for window, with
+    one launch of each path kernel a window; the sweep's scores on the card
+    equal the CPU run's with both drivers."""
+    from repro_torch.core.pipeline import (
+        PipelineConfig, run_recording, run_recording_scan, threshold_sweep,
+    )
+    from repro_torch.data.synthetic import make_recording
+
+    if path == "float":
+        cfg, own = PipelineConfig(use_kernels=True, metrics_impl="kernel"), ("cluster_accum", "patch_metrics")
+    else:
+        cfg, own = PipelineConfig(numerics="fixed", metrics_impl="megakernel"), ("window_pipeline",)
+    rec = make_recording(seed=9, duration_s=0.6, n_rsos=2)
+    ops.reset_launches()
+    loop = run_recording(rec, cfg, device=cuda_dev)
+    assert ops.LAUNCHES == {k: (len(loop) if k in own else 0) for k in ops.LAUNCHES}, ops.LAUNCHES
+    scan = run_recording_scan(rec, cfg, device=cuda_dev)
+    assert len(loop) == scan.num_windows > 0
+    for a, b in zip(loop, scan.window_results()):
+        for f in Clusters._fields:
+            assert torch.equal(getattr(a.clusters, f), getattr(b.clusters, f)), f
+        for k in a.metrics:
+            np.testing.assert_array_equal(a.metrics[k], b.metrics[k], err_msg=k)
+        for f in a.tracks._fields:
+            assert torch.equal(getattr(a.tracks, f), getattr(b.tracks, f)), f
+    recs = [make_recording(seed=s, duration_s=0.5, n_rsos=1 + s % 3) for s in (1, 2, 3)]
+    score = lambda sw: {t: (v.tp, v.fp, v.fn, v.tn) for t, v in sw.items()}  # noqa: E731
+    want = score(threshold_sweep(recs, config=cfg, device="cpu"))
+    for driver in ("scan", "fleet"):
+        assert score(threshold_sweep(recs, config=cfg, driver=driver, device=cuda_dev)) == want, driver
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither ``jax`` nor the JAX
-package, no source of the port or of ``chip_smoke.py`` imports them, and
+package, no source of the port, of ``chip_smoke.py`` or of the port's
+scripts imports them, and
 its entry points refuse to run silently on the CPU when a card was asked
 for (the default) and none is present."""
 import os
@@ -15,7 +16,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 STANDALONE = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
-    (REPO / "examples").glob("torch_*.py"))
+    (REPO / "examples").glob("torch_*.py")) + sorted((REPO / "tools").glob("torch_*.py"))
 
 
 def _modules():
@@ -32,7 +33,8 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.core.pipeline.stream", "repro_torch.core.pipeline.fleet",
               "repro_torch.distributed.sharding", "repro_torch.data.evas",
               "repro_torch.kernels.event_unpack", "repro_torch.kernels.grid_quantize",
-              "repro_torch.kernels.window_entropy"):
+              "repro_torch.kernels.window_entropy", "repro_torch.core.pipeline.oracles",
+              "repro_torch.core.pipeline.window_core", "repro_torch.core.pipeline.evaluate"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",
@@ -70,9 +72,13 @@ def _no_card():
 def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     _no_card()
     from repro_torch import resolve_device
-    from repro_torch.core.events import pad_windows
+    from repro_torch.core.events import (
+        batch_from_arrays, dual_threshold_batches, make_empty_batch, pad_windows, window_batches,
+    )
     from repro_torch.core.pipeline import (
-        FleetPipeline, PipelineConfig, StreamingPipeline, evaluate_detection, run_recording_scan,
+        FleetPipeline, PipelineConfig, StreamingPipeline, collect_candidates_loop,
+        collect_candidates_many, collect_candidates_numpy, evaluate_detection, run_many_scan,
+        run_recording, run_recording_scan, threshold_sweep,
     )
     from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
     from repro_torch.data.synthetic import make_recording
@@ -92,6 +98,19 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: StreamingPipeline(wire="ragged"),
         lambda: FleetPipeline(n_sensors=4),
         lambda: FleetPipeline(PipelineConfig(use_kernels=True, metrics_impl="kernel"), n_sensors=16),
+        lambda: make_empty_batch(),
+        lambda: batch_from_arrays(rec.x, rec.y, rec.t - rec.t[0], rec.p),
+        lambda: next(dual_threshold_batches(rec.x, rec.y, rec.t, rec.p)),
+        lambda: next(window_batches(rec.x, rec.y, rec.t, rec.p)),
+        lambda: pad_windows(rec.x, rec.y, rec.t, rec.p, policy="stride"),
+        lambda: run_recording(rec),
+        lambda: run_recording(rec, PipelineConfig(numerics="fixed", metrics_impl="megakernel")),
+        lambda: run_many_scan([rec]),
+        lambda: threshold_sweep([rec]),
+        lambda: threshold_sweep([rec], driver="fleet"),
+        lambda: collect_candidates_many([rec]),
+        lambda: collect_candidates_numpy(rec),
+        lambda: collect_candidates_loop(rec),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -6,8 +6,14 @@ exactly, the entropies and contrast to rtol = atol = 1e-5
 (order-dependent float32 reductions and log2). Numpy models of the two
 CUDA kernels' algorithms (the metrics kernel's sort and pixel runs, its
 float32 reduction order; the clustering kernel's prefix top-K) are held
-against the plain versions and the JAX package. The adversarial windows
-and the CUDA kernels' own tests are in ``test_torch_cuda.py``."""
+against the plain versions and the JAX package, and so are models of
+their large paths (past E = 1024 or K = 128: the metrics kernel's runs by
+binary search over keys sorted in memory, the clustering kernel's 64-bit
+keys). A window whose cell t sums pass 2^24 holds the float32 routes
+(the plain version, the JAX package's scatter and its Pallas kernel) to
+the stated bound of the exact, once-rounded sum the clustering kernel
+computes. The adversarial windows and the CUDA kernels' own tests are in
+``test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
@@ -319,16 +325,17 @@ def test_patch_metrics_algorithm_matches_reference_and_plain(case):
                     np.testing.assert_allclose(a, e, rtol=RTOL, atol=ATOL, err_msg=f"{m} {r} {s}")
 
 
-def _k2_model(x, y, t, v, grid):
+def _k2_model(x, y, t, v, grid, key_shift=None):
     """The clustering kernel's stage entry per window: the cell table,
-    then one sort of the counted cells' keys (E - count, cell); slots
-    below min_events are constants, and with min_events <= 0 the slots
-    after the counted cells take the cells with no event, lowest first.
-    Returns the (W, K) cluster fields as numpy."""
+    then one sort of the counted cells' keys (E - count, cell), the count
+    shifted by ``key_shift`` bits (the small path: the cell's bit length;
+    the large path: 32); slots below min_events are constants, and with
+    min_events <= 0 the slots after the counted cells take the cells with
+    no event, lowest first. Returns the (W, K) cluster fields as numpy."""
     n_win, e = x.shape
     k, cs, gw = grid.max_clusters, grid.cell_size, grid.grid_w
     n_cells = gw * grid.grid_h
-    cbits = (n_cells - 1).bit_length()
+    cbits = (n_cells - 1).bit_length() if key_shift is None else key_shift
     out = {f: np.zeros((n_win, k), np.float32 if f.startswith("centroid") else
                        (bool if f == "valid" else np.int32)) for f in Clusters._fields}
     for r in range(n_win):
@@ -409,3 +416,164 @@ def test_cluster_accum_topk_cpu_route_is_rows_then_clusters(cell_size, min_event
     for f in Clusters._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert sum(ops.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# Past the small path's E <= 1024 / K <= 128, and cell t sums past 2^24.
+# ---------------------------------------------------------------------------
+
+def _k3_events_model_large(x, y, v, width=640, height=480):
+    """The metrics kernel's large path, steps 2-3 per window: the same
+    keys sorted; a run's first event leads and finds the run's end by a
+    binary search for the first key of another pixel, so its c is the
+    run's length; the other events of the run are w events that do not
+    lead. Returns (w, c of the leaders, leader, norm, bin)."""
+    n_win, e = x.shape
+    ebits = max(e - 1, 0).bit_length()
+    mask = (1 << ebits) - 1
+    w = v & (x >= 0) & (x < width) & (y >= 0) & (y < height)
+    c = np.zeros((n_win, e), np.int64)
+    lead = np.zeros((n_win, e), bool)
+    norm = np.ones(n_win, F32)
+    bins = np.full((n_win, e), -1, np.int64)
+    for r in range(n_win):
+        keys = np.sort(((y[r].astype(np.int64) * width + x[r]) << ebits | np.arange(e))[w[r]])
+        nw = len(keys)
+        for i in range(nw):
+            cur = keys[i] >> ebits
+            if i and keys[i - 1] >> ebits == cur:
+                continue
+            lo, hi = i + 1, nw
+            while lo < hi:
+                mid = (lo + hi) >> 1
+                if keys[mid] >> ebits == cur:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            c[r, keys[i] & mask] = lo - i
+            lead[r, keys[i] & mask] = True
+        norm[r] = max(int(c[r].max(initial=0)), 1)
+        for i in np.flatnonzero(lead[r]):
+            bins[r, i] = min(max(int(F32(c[r, i]) / norm[r] * F32(32)), 0), 31)
+    return w, c, lead, norm, bins
+
+
+@pytest.mark.parametrize("e", [1025, 4096])
+def test_patch_metrics_large_path_algorithm_matches_reference(e):
+    """The large path's runs by binary search, in numpy, give the small
+    path's w, leaders, normalizer and bins, and equal the JAX package's
+    ``event_normalizer`` and the port's (c compared on the leaders, the
+    only events the kernel keeps it for)."""
+    from repro.core import metrics as JM
+    from repro_torch.data.adversarial import large_windows
+
+    x, y, t, v = _stack(large_windows(e, n_windows=2))
+    w, c, lead, norm, bins = _k3_events_model_large(x, y, v)
+    sw, sc, slead, snorm, sbins = _k3_events_model(x, y, v)
+    np.testing.assert_array_equal(w, sw)
+    np.testing.assert_array_equal(c, np.where(slead, sc, 0))
+    np.testing.assert_array_equal(lead, slead)
+    np.testing.assert_array_equal(norm, snorm)
+    np.testing.assert_array_equal(bins, sbins)
+    tc, tl, tw, tn = TM.event_normalizer(_tbatch(x, y, t, v), 640, 480)
+    np.testing.assert_array_equal(tl.numpy(), lead)
+    np.testing.assert_array_equal(np.where(lead, tc.numpy(), 0), c)
+    np.testing.assert_array_equal(tn.numpy(), norm)
+    jn = jax.jit(lambda jb: JM.event_normalizer(jb, 640, 480))
+    for r in range(x.shape[0]):
+        jc, jl, jw, jnorm = jn(_jbatch(x[r], y[r], t[r], v[r]))
+        np.testing.assert_array_equal(np.asarray(jw), w[r])
+        np.testing.assert_array_equal(np.asarray(jl), lead[r])
+        np.testing.assert_array_equal(np.where(lead[r], np.asarray(jc), 0), c[r])
+        assert np.asarray(jnorm) == norm[r]
+
+
+def _assert_centroid_t_within_bound(got_t, want, abs_t, grid, what):
+    """``got_t`` against ``want.centroid_t`` to :func:`ref.centroid_t_bound`
+    of each valid slot's cell; invalid slots identical."""
+    cell = np.maximum(want["cell_y"] * grid.grid_w + want["cell_x"], 0)
+    a = np.take_along_axis(abs_t, cell, -1)
+    bound = ref.centroid_t_bound(torch.as_tensor(want["count"]), torch.as_tensor(a)).numpy()
+    bound = np.where(want["valid"], bound, 0.0)
+    diff = np.abs(np.asarray(got_t, np.float64) - np.asarray(want["centroid_t"], np.float64))
+    assert (diff <= bound).all(), (what, float((diff - bound).max()))
+
+
+@pytest.mark.parametrize("grid", [dict(), dict(min_events=1, max_clusters=160),
+                                  dict(cell_size=12, min_events=0, max_clusters=160)], ids=str)
+def test_cluster_accum_topk_large_path_matches_reference(grid):
+    """The clustering kernel's large path (E = 4,096: 64-bit keys, count
+    above and cell below, more than 1,024 counted cells; K up to 160), in
+    numpy, equals the port's stage entry on the CPU and the JAX package's
+    ``clusters_from_histogram(*cluster_accum_ref(...))`` on every integer
+    field, centroid_x and centroid_y; centroid_t within
+    ``centroid_t_bound`` where a cell's t sum passes 2^24 (the model sums
+    exactly and rounds once, as the kernel does; the other two add in
+    float32)."""
+    from repro.kernels import ref as jref
+    from repro_torch.data.adversarial import large_windows
+
+    g, jg = GridConfig(**grid), JG.GridConfig(**grid)
+    kw = dict(cell_size=g.cell_size, grid_w=g.grid_w, grid_h=g.grid_h, width=g.width, height=g.height)
+    x, y, t, v = _stack(large_windows(4096))
+    model = _k2_model(x, y, t, v, g, key_shift=32)
+    got = ops.cluster_accum_topk(*(torch.as_tensor(a) for a in (x, y, t, v)), g)
+    jfn = jax.jit(jax.vmap(lambda *a: JG.clusters_from_histogram(*jref.cluster_accum_ref(*a, **kw), jg)))
+    want = jfn(*(jnp.asarray(a, jnp.int32) for a in (x, y, t)), jnp.asarray(v))
+    abs_t = ref.abs_t_rows(*(torch.as_tensor(a) for a in (x, y, t, v)), **kw).numpy()
+    assert (abs_t >= 2 ** 24).any()
+    assert (model["count"] > 0).sum(-1).max() >= min(g.max_clusters, 160)
+    for f in Clusters._fields:
+        if f != "centroid_t":
+            np.testing.assert_array_equal(model[f], getattr(got, f).numpy(), err_msg=f)
+            np.testing.assert_array_equal(model[f], np.asarray(getattr(want, f)), err_msg=f"jax {f}")
+    _assert_centroid_t_within_bound(got.centroid_t.numpy(), model, abs_t, g, "port")
+    _assert_centroid_t_within_bound(np.asarray(want.centroid_t), model, abs_t, g, "jax")
+
+
+def test_sum_t_past_two_to_the_24_within_stated_bound():
+    """One window whose cells' t sums pass 2^24 (600 events near t =
+    100,000 us; 168 at t = 100,000, just past; 167, just below). The
+    clustering kernel sums t exactly in int64 and rounds once; the port's
+    plain version, the JAX package's ``cell_histogram`` and its Pallas
+    ``cluster_accum`` (interpret mode) add in float32. The stated bound:
+    |sum_t - exact| <= (n + 1) 2^-24 sum|t| and, for centroid_t =
+    sum_t / max(n, 1), (n + 3) 2^-24 sum|t| / n, n the cell's count, and
+    both exact where sum|t| < 2^24. Count, sum_x, sum_y and every other
+    cluster field are exact on every route."""
+    from repro_torch.core.grid_clustering import clusters_from_histogram
+    from repro_torch.data.adversarial import sum_t_window
+
+    x, y, t, v = (a[None] for a in sum_t_window())
+    g, jg = GridConfig(min_events=1), JG.GridConfig(min_events=1)
+    kw = dict(cell_size=16, grid_w=g.grid_w, grid_h=g.grid_h, width=640, height=480)
+    tt = [torch.as_tensor(a) for a in (x, y, t, v)]
+    exact = ref.abs_t_rows(*tt, **kw)[0]  # every t >= 0: the exact sums
+    assert int(exact.max()) > 2 ** 24 and int((exact >= 2 ** 24).sum()) == 2
+    plain = ref.cluster_accum_ref(*tt, **kw)
+    count = plain[0][0]
+    jh = JG.cell_histogram(_jbatch(x[0], y[0], t[0], v[0]), jg)
+    jp = jops.cluster_accum(*(jnp.asarray(a[0]) for a in (x, y, t, v)), **kw)
+    k2 = exact.float()  # the kernel's sum_t: the exact sum rounded once
+    bound = ref.sum_t_bound(count, exact).numpy()
+    assert (bound[exact.numpy() < 2 ** 24] == 0).all()
+    routes = {"port plain": [a[0].numpy() for a in plain], "jax cell_histogram": jh,
+              "jax pallas": jp}
+    for name, (c, sx, sy, st) in routes.items():
+        np.testing.assert_array_equal(np.asarray(c), count.numpy(), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(sx), plain[1][0].numpy(), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(sy), plain[2][0].numpy(), err_msg=name)
+        diff = np.abs(np.asarray(st, np.float64) - k2.double().numpy())
+        assert (diff <= bound).all(), (name, float((diff - bound).max()))
+
+    model = _k2_model(x, y, t, v, g)  # the kernel's fields, exact sums
+    for name, cl in (
+        ("port plain", ops.cluster_accum_topk(*tt, g)),
+        ("jax cell_histogram", JG.clusters_from_histogram(*jh, jg)),
+        ("jax pallas", clusters_from_histogram(*(torch.as_tensor(np.array(a))[None] for a in jp), g)),
+    ):
+        got = {f: np.asarray(getattr(cl, f)).reshape(1, -1) for f in Clusters._fields}
+        for f in Clusters._fields:
+            if f != "centroid_t":
+                np.testing.assert_array_equal(got[f], model[f], err_msg=f"{name} {f}")
+        _assert_centroid_t_within_bound(got["centroid_t"], model, exact.numpy()[None], g, name)
