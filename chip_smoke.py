@@ -49,7 +49,21 @@ Phases (any failure exits non-zero; no error is caught):
    depth 2 equal to ``feed``; per-round latency, windows per second, the
    wire's compression and the decode's share of a round under the
    profiler;
-5. every kernel of each path was launched on it.
+5. every kernel of each path was launched on it;
+6. the detection service (``DetectionService``) on the float kernel and
+   the fixed megakernel config: sessions of the five balanced scenario
+   families, 2.5 s each, 4 growing to 16 (promotions 4 -> 8 -> 16), then
+   the oldest out and a new one in every 12 rounds, 120 rounds of 20 ms
+   under ``AdmissionConfig(0.02, 250 * 16)``: every session, detach tail
+   included, equal to a dedicated ``StreamingPipeline`` on the card;
+   depth 2 equal to depth 1; a 4-session 40-round cut equal between the
+   card and the CPU; no step retry and no degraded round; the path's
+   kernels launched; per-round latency and windows per second. Then a
+   session exported on the card and adopted by a CPU service (and the
+   other way), equal to a never-migrated stream; Table I
+   (``grid_cluster``, ``kmeans``, ``dbscan``) timed on the card with
+   DBSCAN's labels equal to the CPU's, and ``quantize_packed`` on the
+   scale recording's words equal to ``grid_quantize_packed``.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -63,7 +77,9 @@ fleet driver on both datapaths, equal to the JAX reference's scores; phase
 4 also runs the scale recording in those stride windows, equal to the CPU
 run.
 
-Then one JSON line of per-kernel numbers, the card's name and power
+Then one JSON line of per-kernel numbers (with each path kernel's
+launches in phase 6's depth-1 service run as ``service_launches``), the
+card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. In that line a path
 kernel's ``launches`` count one pass of the scale recording through its
 path's driver (``LAUNCH_BASIS``), and its times are per launch of that
@@ -149,6 +165,21 @@ SWEEP_EXPECT = {2: (4246, 12974, 78, 0), 3: (3912, 2804, 87, 10170), 4: (3640, 6
                 5: (3386, 129, 253, 12845), 6: (3120, 20, 435, 12954), 8: (2536, 0, 933, 12974),
                 10: (1843, 0, 1608, 12974)}
 ENTROPY_RTOL, ENTROPY_ATOL = 1e-5, 1e-7  # order-dependent float32 sums, log2f
+# Phase 6, the detection service: sessions of make_fleet_recordings over
+# the five balanced families, 2.5 s each at the paper's widths; start with
+# 4 sessions, attach one every 4 rounds up to 16 (4 -> 8 -> 16), then
+# detach the oldest and attach a new one every 12 rounds; 120 rounds of
+# 20 ms. The cut runs 4 sessions for 40 rounds on both devices.
+SERVICE_FAMILIES = ("crossing", "geo_slow", "tumbling", "ballistic", "jitter")
+SERVICE_DURATION_S = 2.5
+SERVICE_TIERS = (4, 8, 16, 32)
+SERVICE_FULL = dict(max_sessions=16, rounds=120)
+SERVICE_CUT = dict(max_sessions=4, rounds=40)
+SERVICE_START, SERVICE_GROW_EVERY, SERVICE_CHURN_EVERY = 4, 4, 12
+SERVICE_KERNELS = {"float": FLEET_KERNELS, "fixed": FIXED_KERNELS}
+# Table I at the sizes of benchmarks/table1_algorithms.py, plus n = 4096.
+TABLE1_GRID_N = (64, 128, 256, 512, 1024, 4096)
+TABLE1_BASELINE_N = (64, 128, 256, 512, 4096)
 
 
 def log(*a):
@@ -1577,6 +1608,259 @@ def check_stream(cfg, rec, scan, dev) -> tuple[dict, dict]:
     return counts, row, stream_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the detection service, a session across devices, Table I.
+# ---------------------------------------------------------------------------
+
+def service_recordings(n: int) -> list:
+    """Session k's recording: family k mod 5, seed 17 k, 2.5 s."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import SCENARIO_FAMILIES, make_fleet_recordings
+
+    recs = []
+    for k in range(n):
+        fam = SERVICE_FAMILIES[k % len(SERVICE_FAMILIES)]
+        rec = make_fleet_recordings(1, scenario=SCENARIO_FAMILIES[fam], seed0=17 * k,
+                                    duration_s=SERVICE_DURATION_S)[0]
+        recs.append(dataclasses.replace(rec, name=f"station{k}-{fam}"))
+    return recs
+
+
+def service_schedule(max_sessions: int, rounds: int) -> dict:
+    """Round -> [("detach" | "attach", session key)]: SERVICE_START
+    sessions at round 0, one more every SERVICE_GROW_EVERY rounds up to
+    ``max_sessions``, then every SERVICE_CHURN_EVERY rounds the oldest
+    leaves and a new one joins."""
+    sched = {0: [("attach", k) for k in range(SERVICE_START)]}
+    live, nxt = list(range(SERVICE_START)), SERVICE_START
+    full = SERVICE_GROW_EVERY * (max_sessions - SERVICE_START)
+    for r in range(1, rounds):
+        if r <= full and r % SERVICE_GROW_EVERY == 0:
+            sched[r] = [("attach", nxt)]
+            live.append(nxt)
+            nxt += 1
+        elif r > full and (r - full) % SERVICE_CHURN_EVERY == 0:
+            sched[r] = [("detach", live.pop(0)), ("attach", nxt)]
+            live.append(nxt)
+            nxt += 1
+    return sched
+
+
+def run_service(cfg, recs, sched, rounds: int, dev, depth: int = 1) -> dict:
+    """Drive a ``DetectionService`` through ``sched``: each round its
+    attaches and detaches, one 20 ms chunk per live session, and a forced
+    pump; at depth 1 each round's results are read inside it, at depth 2
+    only after every round was dispatched. Then every session detaches.
+    Returns parts and chunks per key, the rounds' host ms (closed by a
+    synchronize), the service and the wall time."""
+    import torch
+
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.serve import AdmissionConfig, DetectionService
+
+    svc = DetectionService(cfg, tiers=SERVICE_TIERS, device=dev, max_inflight_rounds=depth,
+                           admission=AdmissionConfig(max_delay_s=0.02, max_items=250 * 16))
+    sync = torch.cuda.synchronize if svc.device.type == "cuda" else (lambda: None)
+    chunks = {k: list(iter_chunks(rec, CHUNK_US)) for k, rec in enumerate(recs)}
+    sid, key, start, fed, served, tails, ms = {}, {}, {}, {}, [], {}, []
+    t_wall = time.perf_counter()
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        got = []
+        for op, k in sched.get(r, ()):
+            if op == "detach":
+                tails[k] = svc.detach(sid.pop(k))
+            else:
+                sid[k], start[k], fed[k] = svc.attach(recs[k].name), r, []
+                key[sid[k]] = k
+        for k, s in sid.items():
+            i = r - start[k]
+            if i < len(chunks[k]):
+                fed[k].append(chunks[k][i])
+                got += svc.feed(s, *chunks[k][i])
+        got += svc.pump(force=True)
+        if depth == 1:
+            for fd in got:
+                fd.result  # noqa: B018 - a client reads its results
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        served += got
+    for k in list(sid):
+        tails[k] = svc.detach(sid.pop(k))
+    svc.drain()
+    sync()
+    wall = time.perf_counter() - t_wall
+    parts = {k: [] for k in fed}
+    for fd in served:
+        parts[key[fd.sid]].append(fd.result)
+    for k in parts:
+        parts[k].append(tails[k])
+    return dict(parts=parts, fed=fed, ms=ms, svc=svc, wall=wall)
+
+
+def require_clean(svc, what: str) -> None:
+    """No device failure hidden by a retry or a degraded round."""
+    require(svc.step_retries == 0 and svc.degraded_rounds == 0,
+            f"{what}: {svc.step_retries} step retries, {svc.degraded_rounds} degraded rounds")
+
+
+def check_service(name: str, cfg, dev) -> dict:
+    """The service at full width on the card (SERVICE_FULL) at depth 1 and
+    2 and the cut (SERVICE_CUT) on the card and the CPU. Returns the
+    launches of the depth-1 run and its per-round numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.kernels import ops
+
+    sched = service_schedule(**SERVICE_FULL)
+    n_keys = 1 + max(k for evs in sched.values() for _, k in evs)
+    recs = service_recordings(n_keys)
+    run_service(cfg, recs[:4], service_schedule(**SERVICE_CUT), 8, dev)  # warm-up
+    ops.reset_launches()
+    one = run_service(cfg, recs, sched, SERVICE_FULL["rounds"], dev)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    svc = one["svc"]
+    require_clean(svc, f"service ({name})")
+    own = SERVICE_KERNELS[name]
+    require(all(counts[k] > 0 for k in own) and all(
+        counts[k] == 0 for k in ("cluster_accum", "patch_metrics", "window_pipeline") if k not in own),
+        f"service ({name}): launches {counts}, expected {own}")
+    detaches = sum(op == "detach" for evs in sched.values() for op, _ in evs)
+    require(svc.promotions == 2 and svc.capacity == 16 and svc.demotions == 0,
+            f"service ({name}): promotions {svc.promotions}, capacity {svc.capacity}")
+    require(len(svc.detached_sessions) == n_keys and n_keys == 16 + detaches,
+            f"service ({name}): {len(svc.detached_sessions)} detached of {n_keys}")
+    windows = sum(p.num_windows for parts in one["parts"].values() for p in parts)
+    for k, chunks in one["fed"].items():
+        sp = StreamingPipeline(cfg, wire="ragged", device=dev)
+        want = [sp.feed(*c) for c in chunks] + [sp.flush()]
+        compare_parts(concat_parts(one["parts"][k]), concat_parts(want),
+                      f"service ({name}) session {k} vs its dedicated stream")
+    two = run_service(cfg, recs, sched, SERVICE_FULL["rounds"], dev, depth=2)
+    require_clean(two["svc"], f"service ({name}, depth 2)")
+    for k in one["parts"]:
+        compare_parts(concat_parts(two["parts"][k]), concat_parts(one["parts"][k]),
+                      f"service ({name}) session {k}, depth 2 vs depth 1")
+    cut_sched = service_schedule(**SERVICE_CUT)
+    cut = {d: run_service(cfg, recs, cut_sched, SERVICE_CUT["rounds"], d) for d in (dev, "cpu")}
+    for run in cut.values():
+        require_clean(run["svc"], f"service cut ({name})")
+    for k in cut[dev]["parts"]:
+        compare_parts(concat_parts(cut[dev]["parts"][k]), concat_parts(cut["cpu"]["parts"][k]),
+                      f"service cut ({name}) session {k}, cuda vs cpu", exact=False)
+    lat = np.asarray(one["ms"])
+    row = dict(p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)),
+               max=float(lat.max()), windows=windows, wall_s=one["wall"],
+               windows_per_s=windows / one["wall"], launches=counts)
+    log(f"[6] service, {name} path: {n_keys} sessions ({SERVICE_START} -> 16, promotions "
+        f"{svc.promotions}, {detaches} churn detaches), {SERVICE_FULL['rounds']} rounds of "
+        f"{CHUNK_US // 1000} ms, {windows} windows, launches {counts}; every session, detach "
+        f"tail included, equal to its dedicated StreamingPipeline on the card; depth 2 equal to "
+        f"depth 1; the {SERVICE_CUT['max_sessions']}-session {SERVICE_CUT['rounds']}-round cut "
+        f"equal cuda vs cpu; step retries 0, degraded rounds 0")
+    log(f"    per-round latency (host clock, attaches + feeds + forced pump + results read, "
+        f"synchronize per round): p50 {row['p50']:.3f} ms, p99 {row['p99']:.3f} ms, max "
+        f"{row['max']:.3f} ms (budget {BUDGET_MS} ms); {row['windows_per_s']:.0f} windows/s wall "
+        f"({one['wall']:.2f} s with the final detaches); depth 2 wall {two['wall']:.2f} s; "
+        "slowest rounds (index, ms, the round's attaches and detaches): " + ", ".join(
+            f"({i}, {lat[i]:.3f}, {sched.get(int(i), [])})" for i in np.argsort(lat)[::-1][:3]))
+    return row
+
+
+def check_migration(cfg, dev) -> None:
+    """A session exported on one device and adopted by a service on the
+    other (through the numpy form), both ways, with chunks still queued
+    at the export and a neighbour streaming on each side: equal to a
+    never-migrated stream on the card."""
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.serve import (
+        AdmissionConfig, DetectionService, session_export_from_numpy, session_export_to_numpy,
+    )
+
+    recs = service_recordings(3)
+    mover, other = (list(iter_chunks(r, CHUNK_US)) for r in recs[1:3])
+    cut = len(mover) // 2
+    lazy = AdmissionConfig(max_delay_s=1e9, max_items=1 << 30)
+    sp = StreamingPipeline(cfg, wire="ragged", device=dev)
+    never = concat_parts([sp.feed(*c) for c in mover] + [sp.flush()])
+    for src_dev, dst_dev in ((dev, "cpu"), ("cpu", dev)):
+        src, dst = (DetectionService(cfg, tiers=(4,), admission=lazy, device=d)
+                    for d in (src_dev, dst_dev))
+        parts = []
+        s, n = src.attach("mover"), src.attach("neighbour")
+        for i in range(cut):
+            src.feed(n, *other[i])
+            src.feed(s, *mover[i])
+            if i < cut - 2:  # the last two chunks stay queued for the export
+                parts += [fd.result for fd in src.pump(force=True) if fd.sid == s]
+        require(src.session(s).queued_events > 0, "migration: nothing queued at the export")
+        exp = session_export_from_numpy(session_export_to_numpy(src.export_session(s)))
+        dn = dst.attach("neighbour")
+        dst.feed(dn, *other[0])
+        new = dst.adopt_session(exp)
+        for i in range(cut, len(mover)):
+            dst.feed(new, *mover[i])
+            parts += [fd.result for fd in dst.pump(force=True) if fd.sid == new]
+        parts.append(dst.detach(new))
+        require_clean(src, "migration source")
+        require_clean(dst, "migration destination")
+        compare_parts(concat_parts(parts), never, f"session migrated {src_dev} -> {dst_dev}",
+                      exact=False)
+    log(f"[6] a session exported on the card and adopted on the cpu, and the other way, "
+        f"{cut} chunks in, two still queued: equal to a never-migrated stream on the card")
+
+
+def check_table1(dev, scale) -> dict:
+    """Table I on the card: ``grid_cluster``, ``kmeans(k=8, iters=16)`` and
+    ``dbscan(eps=8, min_pts=5)`` per call under CUDA events on uniform
+    batches; DBSCAN's labels equal to the CPU's exactly. And
+    ``quantize_packed`` on the scale recording's words equal to K1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import dbscan, kmeans
+    from repro_torch.core.events import batch_from_arrays, pack_words
+    from repro_torch.core.grid_clustering import GridConfig, grid_cluster, quantize_packed
+    from repro_torch.kernels import ops
+
+    def batch(n, device):
+        rng = np.random.default_rng(0)
+        return batch_from_arrays(rng.integers(0, 640, n), rng.integers(0, 480, n), np.arange(n),
+                                 rng.integers(0, 2, n), n, device)
+
+    times = {"grid": {}, "kmeans": {}, "dbscan": {}}
+    for n in TABLE1_GRID_N:
+        b = batch(n, dev)
+        times["grid"][n] = cuda_ms(lambda: grid_cluster(b, GridConfig()))
+    for n in TABLE1_BASELINE_N:
+        b, c = batch(n, dev), batch(n, "cpu")
+        times["kmeans"][n] = cuda_ms(lambda: kmeans(b, k=8, iters=16), iters=5, warmup=1)
+        times["dbscan"][n] = cuda_ms(lambda: dbscan(b, eps=8.0, min_pts=5), iters=5, warmup=1)
+        g, h = dbscan(b, eps=8.0, min_pts=5), dbscan(c, eps=8.0, min_pts=5)
+        equal(g.labels, h.labels, f"dbscan n={n} labels, cuda vs cpu")
+        equal(g.core_mask, h.core_mask, f"dbscan n={n} core mask, cuda vs cpu")
+        require(int(g.n_clusters) == int(h.n_clusters), f"dbscan n={n} clusters")
+        km, kc = kmeans(b, k=8, iters=16), kmeans(c, k=8, iters=16)
+        close(km.centroids, kc.centroids, f"kmeans n={n} centroids, cuda vs cpu", rtol=1e-5, atol=0.0)
+    slope = {k: float(np.log(v[512] / v[128]) / np.log(4)) for k, v in times.items()}
+    log("[6] Table I on the card (ms a call, CUDA events): " + "; ".join(
+        f"{k} " + ", ".join(f"n={n} {t:.4f}" for n, t in v.items()) + f", slope n=128..512 "
+        f"{slope[k]:.2f}" for k, v in times.items())
+        + "; DBSCAN labels equal to the cpu run's at every n")
+    words = pack_words(torch.as_tensor(scale.x, device=dev), torch.as_tensor(scale.y, device=dev))
+    for cell in (16, 12):
+        k1 = ops.grid_quantize_packed(words.to(torch.int32), cell)
+        equal(k1.to(torch.int64) & 0xFFFFFFFF, quantize_packed(words, cell),
+              f"quantize_packed vs grid_quantize_packed, cell {cell}")
+    log(f"    quantize_packed on cuda equal to the grid_quantize_packed kernel on {words.numel()} "
+        f"words (cells 16 and 12)")
+    return dict(times=times, slope=slope)
+
 def main() -> int:
     import torch
 
@@ -1719,6 +2003,14 @@ def main() -> int:
         f"{ {k: phase2[k] for k in NO_PATH} } in phase 2 for the kernels no path reaches")
     launches.update({k: phase2[k] for k in NO_PATH})
 
+    # Phase 6: the detection service on both datapaths, each run's
+    # counters set to 0 just before it; a session across devices; Table I.
+    t6 = time.perf_counter()
+    service = {name: check_service(name, c, dev) for name, c in (("float", cfg), ("fixed", fixed))}
+    check_migration(cfg, dev)
+    check_table1(dev, scale)
+    log(f"[6] phase wall time {time.perf_counter() - t6:.1f} s")
+
     rows = []
     for name, r in kernels.items():
         row = dict(
@@ -1734,6 +2026,12 @@ def main() -> int:
             row["removed_ops_ms"] = r["removed_ms"]
         if "rows_entry" in r:
             row["rows_entry"] = r["rows_entry"]
+        for path, r6 in service.items():  # the service run that drives this kernel
+            if name in SERVICE_KERNELS[path]:
+                row["service_launches"] = r6["launches"][name]
+                row["service_launches_on"] = (
+                    f"DetectionService, {path} path, {SERVICE_FULL['rounds']} rounds of the "
+                    f"phase-6 schedule at depth 1")
         if name in NO_PATH:
             row["path"] = "no path (tests only, as in the reference); launches are phase 2's"
         else:

@@ -1,10 +1,11 @@
 """Fleet quickstart on the PyTorch/CUDA port: four live sensors through
 one ``FleetPipeline`` on the GPU.
 
-The port's counterpart of ``examples/fleet_quickstart.py``, on seeded
-``make_recording`` skies (the scenario families are not ported yet).
-Every round takes one 20 ms chunk per sensor over the ragged ingest
-wire, decodes it on the device (the ``event_unpack`` CUDA kernel), and
+The port's counterpart of ``examples/fleet_quickstart.py``, on the same
+scenario-diverse sky: a crossing pair, a GEO slow-mover, a tumbling RSO
+and a ballistic arc, each sensor with its own pointing jitter
+(``make_fleet_recordings`` over the scenario families). Every round
+takes one 20 ms chunk per sensor over the ragged ingest wire, decodes it on the device (the ``event_unpack`` CUDA kernel), and
 drives all four sensors through one step: conditioning, clustering (the
 ``cluster_accum`` kernel), the six metrics (the ``patch_metrics``
 kernel) and the tracker, with per-sensor carries riding along between
@@ -17,6 +18,7 @@ on the plain route, as the reference's does without ``use_kernels``).
   PYTHONPATH=src python examples/torch_fleet_quickstart.py --device cpu
 """
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -25,10 +27,11 @@ import torch
 from repro_torch.core.pipeline import FleetPipeline, PipelineConfig
 from repro_torch.core.tracking import TrackState, confirmed
 from repro_torch.data.evas import iter_chunks
-from repro_torch.data.synthetic import make_recording
+from repro_torch.data.synthetic import SCENARIO_FAMILIES, make_fleet_recordings
 
 CHUNK_US = 20_000  # feed 20 ms per sensor per round
-N_SENSORS = 4
+FAMILIES = ("crossing", "geo_slow", "tumbling", "ballistic")
+N_SENSORS = len(FAMILIES)
 
 
 def main() -> None:
@@ -39,10 +42,17 @@ def main() -> None:
                     help="float32 datapath or the fixed-point one")
     args = ap.parse_args()
 
-    print(f"Generating a {N_SENSORS}-sensor sky ({args.duration:g} s each)...")
-    recs = [make_recording(seed=20 + s, duration_s=args.duration, n_rsos=2) for s in range(N_SENSORS)]
-    for s, rec in enumerate(recs):
-        print(f"  sensor {s}: {len(rec):>7,} events")
+    print(f"Generating a {N_SENSORS}-sensor scenario-diverse sky ({args.duration:g} s each)...")
+    recs = [
+        dataclasses.replace(
+            make_fleet_recordings(1, scenario=SCENARIO_FAMILIES[fam], seed0=31 * s,
+                                  duration_s=args.duration)[0],
+            name=f"sensor{s}-{fam}",
+        )
+        for s, fam in enumerate(FAMILIES)
+    ]
+    for rec in recs:
+        print(f"  {rec.name:<22} {len(rec):>7,} events")
 
     per_sensor = [list(iter_chunks(r, CHUNK_US)) for r in recs]
     n_rounds = max(len(c) for c in per_sensor)
@@ -84,7 +94,7 @@ def main() -> None:
             f"({float(state.x[i]):5.0f},{float(state.y[i]):5.0f}) hits={int(state.hits[i])}"
             for i in ids
         ) or "none"
-        print(f"  sensor {s}: {len(ids)} confirmed tracks: {line}")
+        print(f"  sensor {s} ({recs[s].name}): {len(ids)} confirmed tracks: {line}")
 
 
 if __name__ == "__main__":

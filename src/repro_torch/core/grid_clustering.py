@@ -2,9 +2,11 @@
 
 The port of ``repro.core.grid_clustering``: :func:`quantize` is the
 stateless spatial quantization (the paper's FPGA IP core, ``cell = coord
-// cell_size``); :func:`cell_histogram` plus :func:`clusters_from_histogram`
-form the per-cell clusters, thresholded at ``min_events`` and kept as the
-top-K cells by count. Every function takes a leading window axis
+// cell_size``), :func:`quantize_packed` the same on the 32-bit wire word;
+:func:`cell_histogram` plus :func:`clusters_from_histogram` (together
+:func:`form_clusters`, or :func:`grid_cluster`) form the per-cell
+clusters, thresholded at ``min_events`` and kept as the top-K cells by
+count. Every function takes a leading window axis
 ``(..., E)`` / ``(..., K)``.
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.events import EventBatch
+from repro_torch.core.events import EventBatch, pack_words, unpack_words
 
 DEFAULT_CELL_SIZE = 16  # paper: "grid size is fixed to 16x16"
 DEFAULT_MIN_EVENTS = 5  # paper Table IV
@@ -67,6 +69,15 @@ def quantize(
         return (x >> shift).to(torch.int32), (y >> shift).to(torch.int32)
     div = lambda a: torch.div(a, cell_size, rounding_mode="floor").to(torch.int32)
     return div(x), div(y)
+
+
+def quantize_packed(words: torch.Tensor, cell_size: int = DEFAULT_CELL_SIZE) -> torch.Tensor:
+    """The IP core end to end on the 32-bit wire word: unpack (bit slice),
+    quantize, repack. Plain tensor ops, as the reference's is plain
+    ``jnp``; the ``grid_quantize_packed`` kernel computes the same words.
+    Returns the packed cell words in int64 (:func:`pack_words`)."""
+    x, y = unpack_words(words)
+    return pack_words(*quantize(x, y, cell_size))
 
 
 def cell_histogram(
@@ -134,6 +145,12 @@ def clusters_from_histogram(
 def form_clusters(batch: EventBatch, config: GridConfig) -> Clusters:
     """The paper's client-side cluster formation, single pass."""
     return clusters_from_histogram(*cell_histogram(batch, config), config)
+
+
+def grid_cluster(batch: EventBatch, config: GridConfig = GridConfig()) -> Clusters:
+    """End-to-end grid clustering of event windows (quantize + form) on
+    the batch's device: the Table I entry of the paper's method."""
+    return form_clusters(batch, config)
 
 
 def merge_adjacent(clusters: Clusters, config: GridConfig) -> Clusters:

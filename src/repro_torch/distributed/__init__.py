@@ -1,2 +1,2 @@
-"""Fleet carry migration (``sharding``). Sharding over a device mesh is
-not ported yet."""
+"""Fleet carry migration (``sharding``) and session liveness
+(``fault_tolerance``). Sharding over a device mesh is not ported yet."""

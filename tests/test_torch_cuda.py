@@ -647,3 +647,105 @@ def test_stream_ragged_equals_scan_on_card(cuda_dev):
     for f in scan.tracks._fields:
         assert torch.equal(whole(lambda p: getattr(p.tracks, f)), getattr(scan.tracks, f)), f
         assert torch.equal(getattr(parts[-1].final_tracks, f), getattr(scan.final_tracks, f)), f
+
+
+def _served_parts(svc, chunks_by_name, rounds, detach_at=None):
+    """Drive ``svc``: one chunk per live session a round, a forced pump,
+    detach of ``detach_at`` = (round, name), then every session's
+    detach. Returns {name: parts} and {name: the chunks it was fed}."""
+    sids = {n: svc.attach(n) for n in chunks_by_name}
+    parts = {n: [] for n in chunks_by_name}
+    fed = {n: [] for n in chunks_by_name}
+    by_sid = {sid: n for n, sid in sids.items()}
+    for r in range(rounds):
+        if detach_at is not None and r == detach_at[0]:
+            n = detach_at[1]
+            parts[n].append(svc.detach(sids.pop(n)))
+        for n, sid in sids.items():
+            if r < len(chunks_by_name[n]):
+                fed[n].append(chunks_by_name[n][r])
+                for fd in svc.feed(sid, *chunks_by_name[n][r]):
+                    parts[by_sid[fd.sid]].append(fd.result)
+        for fd in svc.pump(force=True):
+            parts[by_sid[fd.sid]].append(fd.result)
+    for n, sid in sids.items():
+        parts[n].append(svc.detach(sid))
+    return parts, fed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "fixed"])
+def test_service_on_card_equals_streams_and_cpu(cuda_dev, path):
+    """Five scenario-family sessions through ``DetectionService`` on the
+    card (tiers 2, 4, 8: two promotions; one detach mid-run): every
+    session equals a dedicated stream on the card to the bit and the same
+    service on the CPU (integers exact, metrics rtol = atol = 1e-5,
+    tracker floats rtol 1e-6, atol 1e-4); the path's kernels launched, no
+    retry and no degraded round."""
+    from repro_torch.core.pipeline import PipelineConfig, StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.data.synthetic import make_fleet_recordings
+    from repro_torch.serve import DetectionService
+
+    cfg = (PipelineConfig(use_kernels=True, metrics_impl="kernel") if path == "float"
+           else PipelineConfig(numerics="fixed", metrics_impl="megakernel"))
+    own = ("event_unpack", "cluster_accum", "patch_metrics") if path == "float" else ("window_pipeline",)
+    recs = make_fleet_recordings(5, duration_s=0.5)
+    chunks = {r.name: list(iter_chunks(r, 20_000)) for r in recs}
+    ops.reset_launches()
+    svc = DetectionService(cfg, tiers=(2, 4, 8), device=cuda_dev)
+    gpu, fed = _served_parts(svc, chunks, 26, detach_at=(12, recs[1].name))
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[k] > 0 for k in own), ops.LAUNCHES
+    assert svc.promotions == 2 and svc.step_retries == 0 and svc.degraded_rounds == 0
+    cpu, _ = _served_parts(DetectionService(cfg, tiers=(2, 4, 8), device="cpu"), chunks, 26,
+                           detach_at=(12, recs[1].name))
+    for name, parts in gpu.items():
+        sp = StreamingPipeline(cfg, device=cuda_dev)
+        want = [sp.feed(*c) for c in fed[name]] + [sp.flush()]
+        for group in ("clusters", "tracks"):
+            for f in getattr(want[0], group)._fields:
+                got_f = torch.cat([getattr(getattr(p, group), f).cpu() for p in parts])
+                assert torch.equal(got_f, torch.cat([getattr(getattr(p, group), f).cpu() for p in want])), f
+                cpu_f = torch.cat([getattr(getattr(p, group), f) for p in cpu[name]])
+                if got_f.is_floating_point() and group == "tracks":
+                    torch.testing.assert_close(got_f, cpu_f, rtol=1e-6, atol=1e-4)
+                else:
+                    assert torch.equal(got_f, cpu_f), (name, f)
+        for m in want[0].metrics:
+            got_m = torch.cat([p.metrics[m].cpu() for p in parts])
+            assert torch.equal(got_m, torch.cat([p.metrics[m].cpu() for p in want])), m
+            cpu_m = torch.cat([p.metrics[m] for p in cpu[name]])
+            if m in EXACT:
+                assert torch.equal(got_m, cpu_m), m
+            else:
+                torch.testing.assert_close(got_m, cpu_m, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_baselines_and_quantize_packed_on_card(cuda_dev):
+    """DBSCAN's labels, core mask and cluster count on the card equal the
+    CPU's exactly (n = 64 to 4096); k-means' assignments and counts too,
+    centroids within rtol 1e-6; ``quantize_packed`` on CUDA tensors equals
+    the ``grid_quantize_packed`` kernel bit for bit."""
+    from repro_torch.core.baselines import dbscan, kmeans
+    from repro_torch.core.grid_clustering import quantize_packed
+
+    for n in (64, 512, 4096):
+        rng = np.random.default_rng(n)
+        args = (rng.integers(0, 640, n), rng.integers(0, 480, n), np.arange(n), np.zeros(n, np.int32), n)
+        bg, bc = TE.batch_from_arrays(*args, device=cuda_dev), TE.batch_from_arrays(*args, device="cpu")
+        g, c = dbscan(bg, eps=8.0, min_pts=5), dbscan(bc, eps=8.0, min_pts=5)
+        assert torch.equal(g.labels.cpu(), c.labels) and torch.equal(g.core_mask.cpu(), c.core_mask)
+        assert int(g.n_clusters) == int(c.n_clusters)
+        g, c = kmeans(bg, k=8, iters=16), kmeans(bc, k=8, iters=16)
+        assert torch.equal(g.assignment.cpu(), c.assignment) and torch.equal(g.counts.cpu(), c.counts)
+        torch.testing.assert_close(g.centroids.cpu(), c.centroids, rtol=1e-6, atol=0.0)
+    rng = np.random.default_rng(3)
+    words = TE.pack_words(torch.as_tensor(rng.integers(0, 1 << 16, 1 << 20)),
+                          torch.as_tensor(rng.integers(0, 1 << 16, 1 << 20))).to(cuda_dev)
+    for cell in (16, 12):
+        before = ops.LAUNCHES["grid_quantize_packed"]
+        k1 = ops.grid_quantize_packed(words.to(torch.int32), cell)
+        assert ops.LAUNCHES["grid_quantize_packed"] == before + 1
+        assert torch.equal(k1.to(torch.int64) & 0xFFFFFFFF, quantize_packed(words, cell))

@@ -34,13 +34,17 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.distributed.sharding", "repro_torch.data.evas",
               "repro_torch.kernels.event_unpack", "repro_torch.kernels.grid_quantize",
               "repro_torch.kernels.window_entropy", "repro_torch.core.pipeline.oracles",
-              "repro_torch.core.pipeline.window_core", "repro_torch.core.pipeline.evaluate"):
+              "repro_torch.core.pipeline.window_core", "repro_torch.core.pipeline.evaluate",
+              "repro_torch.data.synthetic", "repro_torch.core.grid_clustering",
+              "repro_torch.core.baselines", "repro_torch.distributed.fault_tolerance",
+              "repro_torch.serve", "repro_torch.serve.batcher", "repro_torch.serve.sessions",
+              "repro_torch.serve.faults", "repro_torch.serve.service"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",
         "event_unpack", "grid_quantize", "window_entropy"}
     assert {p.name for p in (REPO / "examples").glob("torch_*.py")} == {
-        "torch_quickstart.py", "torch_fleet_quickstart.py"}
+        "torch_quickstart.py", "torch_fleet_quickstart.py", "torch_serve_detections.py"}
 
 
 def test_importing_every_module_loads_no_jax():
@@ -82,6 +86,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     )
     from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
     from repro_torch.data.synthetic import make_recording
+    from repro_torch.serve import DetectionService
 
     rec = make_recording(seed=1, duration_s=0.05)
     for call in (
@@ -111,6 +116,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: collect_candidates_many([rec]),
         lambda: collect_candidates_numpy(rec),
         lambda: collect_candidates_loop(rec),
+        lambda: DetectionService(),
+        lambda: DetectionService(PipelineConfig(use_kernels=True, metrics_impl="kernel")),
+        lambda: DetectionService(PipelineConfig(numerics="fixed", metrics_impl="megakernel"),
+                                 tiers=(4, 8, 16, 32)),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -161,3 +170,20 @@ def test_example_fleet_quickstart_runs_on_the_cpu_when_asked():
     assert out.returncode == 0, out.stderr
     assert "Processed" in out.stdout and "fleet rounds" in out.stdout
     assert out.stdout.count("confirmed tracks") == 4
+
+
+@pytest.mark.parametrize("numerics", ["float", "fixed"])
+def test_example_serve_detections_runs_on_the_cpu_when_asked(numerics):
+    """The serving example's schedule on the CPU: five stations, the 4 -> 8
+    promotion, one detach, no retry and no degraded round."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_serve_detections.py"), "--device", "cpu",
+         "--duration", "0.6", "--numerics", numerics],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "DetectionService up on cpu" in out.stdout
+    assert "(pool promoted: capacity 8, promotions 1)" in out.stdout
+    assert "session 0 detached" in out.stdout and out.stdout.count("confirmed tracks at detach") == 5
+    assert "Promotions 1, step retries 0, degraded rounds 0" in out.stdout
