@@ -63,7 +63,23 @@ Phases (any failure exits non-zero; no error is caught):
    other way), equal to a never-migrated stream; Table I
    (``grid_cluster``, ``kmeans``, ``dbscan``) timed on the card with
    DBSCAN's labels equal to the CPU's, and ``quantize_packed`` on the
-   scale recording's words equal to ``grid_quantize_packed``.
+   scale recording's words equal to ``grid_quantize_packed``;
+7. fault injection and scale-out serving: (a) on both datapaths the
+   chaos harness (``ChaosHarness``) at 16 sensors, 4 faulty, 120 rounds
+   of 400 events: every fault kind fired, none escaped, the healthy
+   sessions bit-identical to the fault-free twin, shed accounting exact,
+   quarantines, evictions and a retry or degraded round; a
+   step_exception-only run with retries and degraded rounds, bit for bit;
+   a 5-sensor 32-round cut with equal reports and outputs on the card and
+   the CPU; (b) ``ConstellationService``, float path, 4 shards on the
+   card, 32 sessions with churn, a migration, a forced rebalance and
+   shard 3 stalled, rescued and revived: every session equal to a
+   dedicated ``StreamingPipeline`` on the card, none lost, the int8
+   exchange within its per-round bound and telescoping identity; (c) the
+   shard chaos harness (``ShardChaosHarness``), 4 shards, 16 sensors, 96
+   rounds: bit-identical, a rescue, no lost session, nothing escaped.
+   Each run's launch counters are set to 0 just before it; the slowest
+   faulted rounds are printed with the fault kinds scheduled in them.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -78,9 +94,10 @@ fleet driver on both datapaths, equal to the JAX reference's scores; phase
 run.
 
 Then one JSON line of per-kernel numbers (with each path kernel's
-launches in phase 6's depth-1 service run as ``service_launches``), the
-card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. In that line a path
+launches in phase 6's depth-1 service run as ``service_launches``, in
+phase 7a's chaos run as ``chaos_launches``, in 7b as
+``constellation_launches`` and in 7c as ``shard_chaos_launches``), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``. In that line a path
 kernel's ``launches`` count one pass of the scale recording through its
 path's driver (``LAUNCH_BASIS``), and its times are per launch of that
 pass: ``ms`` the kernels alone under the profiler, ``call_ms`` the
@@ -180,6 +197,22 @@ SERVICE_KERNELS = {"float": FLEET_KERNELS, "fixed": FIXED_KERNELS}
 # Table I at the sizes of benchmarks/table1_algorithms.py, plus n = 4096.
 TABLE1_GRID_N = (64, 128, 256, 512, 1024, 4096)
 TABLE1_BASELINE_N = (64, 128, 256, 512, 4096)
+# Phase 7, fault injection and scale-out serving. 7a: the chaos harness
+# at 16 sensors (4 faulty), 400 events per 20 ms round (the scale
+# recording's 20 kHz), 6,000-event bursts over a 3,200-event queue
+# budget; its cut runs on the card and on the CPU. 7b: 32 sessions over
+# 4 constellation shards on the one card, 120 rounds: every 12 rounds the
+# oldest session leaves and a new one joins; a migrate at round 30, a
+# forced rebalance at 60, shard 3 stalled over rounds 80-85 (rescued),
+# revived at 100. 7c: the shard chaos harness at the same widths.
+CHAOS_FULL = dict(n_sensors=16, n_faulty=4, n_rounds=120, seed=7, chunk_events=400,
+                  burst_events=6000, queue_budget_events=3200, tiers=(4, 8, 16, 32))
+CHAOS_CUT = dict(n_sensors=5, n_rounds=32, tiers=(4, 8))
+CONST_SHARDS, CONST_TIERS, CONST_SESSIONS, CONST_ROUNDS = 4, (4, 8, 16), 32, 120
+CONST_CHURN_EVERY, CONST_MIGRATE_AT, CONST_REBALANCE_AT = 12, 30, 60
+CONST_STALL_SHARD, CONST_STALL, CONST_REVIVE_AT = 3, (80, 85), 100
+SHARD_CHAOS = dict(n_shards=4, n_sensors=16, n_faulty=4, n_rounds=96, seed=7, chunk_events=400,
+                   burst_events=6000, queue_budget_events=3200)
 
 
 def log(*a):
@@ -1705,6 +1738,21 @@ def require_clean(svc, what: str) -> None:
             f"{what}: {svc.step_retries} step retries, {svc.degraded_rounds} degraded rounds")
 
 
+def path_launches(name: str, counts: dict, what: str) -> None:
+    """Each kernel of the path ran, and no kernel of the other path."""
+    own = SERVICE_KERNELS[name]
+    require(all(counts[k] > 0 for k in own) and all(
+        counts[k] == 0 for k in ("cluster_accum", "patch_metrics", "window_pipeline") if k not in own),
+        f"{what} ({name}): launches {counts}, expected {own}")
+
+
+def round_stats(ms) -> dict:
+    import numpy as np
+
+    lat = np.asarray(ms)
+    return dict(p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)), max=float(lat.max()))
+
+
 def check_service(name: str, cfg, dev) -> dict:
     """The service at full width on the card (SERVICE_FULL) at depth 1 and
     2 and the cut (SERVICE_CUT) on the card and the CPU. Returns the
@@ -1725,10 +1773,7 @@ def check_service(name: str, cfg, dev) -> dict:
     counts = dict(ops.LAUNCHES)
     svc = one["svc"]
     require_clean(svc, f"service ({name})")
-    own = SERVICE_KERNELS[name]
-    require(all(counts[k] > 0 for k in own) and all(
-        counts[k] == 0 for k in ("cluster_accum", "patch_metrics", "window_pipeline") if k not in own),
-        f"service ({name}): launches {counts}, expected {own}")
+    path_launches(name, counts, "service")
     detaches = sum(op == "detach" for evs in sched.values() for op, _ in evs)
     require(svc.promotions == 2 and svc.capacity == 16 and svc.demotions == 0,
             f"service ({name}): promotions {svc.promotions}, capacity {svc.capacity}")
@@ -1753,8 +1798,7 @@ def check_service(name: str, cfg, dev) -> dict:
         compare_parts(concat_parts(cut[dev]["parts"][k]), concat_parts(cut["cpu"]["parts"][k]),
                       f"service cut ({name}) session {k}, cuda vs cpu", exact=False)
     lat = np.asarray(one["ms"])
-    row = dict(p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)),
-               max=float(lat.max()), windows=windows, wall_s=one["wall"],
+    row = dict(**round_stats(lat), windows=windows, wall_s=one["wall"],
                windows_per_s=windows / one["wall"], launches=counts)
     log(f"[6] service, {name} path: {n_keys} sessions ({SERVICE_START} -> 16, promotions "
         f"{svc.promotions}, {detaches} churn detaches), {SERVICE_FULL['rounds']} rounds of "
@@ -1860,6 +1904,338 @@ def check_table1(dev, scale) -> dict:
     log(f"    quantize_packed on cuda equal to the grid_quantize_packed kernel on {words.numel()} "
         f"words (cells 16 and 12)")
     return dict(times=times, slope=slope)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: fault injection and scale-out serving.
+# ---------------------------------------------------------------------------
+
+def slowest_rounds(ms, schedule, n: int = 3) -> str:
+    """The ``n`` slowest rounds as (index, ms, the fault kinds the schedule
+    put in that round)."""
+    import numpy as np
+
+    kinds = {}
+    for r, _, kind in schedule:
+        kinds.setdefault(r, []).append(kind)
+    lat = np.asarray(ms)
+    return ", ".join(f"({i}, {lat[i]:.3f}, {kinds.get(int(i), [])})" for i in np.argsort(lat)[::-1][:n])
+
+
+class KeepFaulted:
+    """A harness wrapper that keeps the faulted run's record (the healthy
+    sessions' parts) for a comparison across devices."""
+
+    def __init__(self, harness):
+        self.harness = harness
+        self.faulted = None
+        run = harness._run_faulted
+
+        def keep():
+            self.faulted = run()
+            return self.faulted
+
+        harness._run_faulted = keep
+
+
+def check_chaos(name: str, cfg, dev) -> dict:
+    """7a on one datapath: the full-width chaos harness on the card, its
+    step_exception-only run, and its cut on the card and the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FAULT_TAXONOMY, ChaosConfig, ChaosHarness
+
+    full = ChaosConfig(**CHAOS_FULL)
+    harness = ChaosHarness(full, cfg, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rep = harness.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    what = f"[7a] chaos ({name})"
+    path_launches(name, counts, what)
+    require(set(rep.fired) == set(FAULT_TAXONOMY) and min(rep.fired.values()) >= 1,
+            f"{what}: fired {rep.fired}")
+    require(rep.escaped_errors == [], f"{what}: escaped {rep.escaped_errors}")
+    require(rep.bit_identical and rep.healthy_windows > 0, f"{what}: {rep.mismatches[:5]}")
+    require(rep.shed["exact"] and rep.shed["shed"] > 0, f"{what}: shed {rep.shed}")
+    require(rep.quarantines >= 1 and rep.evictions >= 1,
+            f"{what}: quarantines {rep.quarantines}, evictions {rep.evictions}")
+    require(rep.step_retries + rep.degraded_rounds >= 1,
+            f"{what}: step retries {rep.step_retries}, degraded rounds {rep.degraded_rounds}")
+    lat = round_stats(rep.round_times_ms)
+    log(f"{what}: {full.n_sensors} sensors ({full.n_faulty} faulty), {full.n_rounds} rounds of "
+        f"{full.chunk_events} events, fired {rep.fired}; quarantines {rep.quarantines}, evictions "
+        f"{rep.evictions}, step retries {rep.step_retries}, degraded rounds {rep.degraded_rounds}, "
+        f"demotions {rep.demotions}, shed {rep.shed}; escaped errors none; {rep.healthy_windows} "
+        f"healthy windows bit-identical to the fault-free twin; launches {counts}; wall {wall:.2f} s "
+        "(faulted run and its fault-free twin)")
+    log(f"    faulted rounds (host clock, injections + feeds + forced pump, depth 1): p50 "
+        f"{lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms, max {lat['max']:.3f} ms; slowest rounds "
+        f"(index, ms, faults scheduled): {slowest_rounds(rep.round_times_ms, harness.schedule())}")
+    step = ChaosHarness(dataclasses.replace(full, faults=("step_exception",)), cfg, device=dev).run()
+    require(step.step_retries >= 1 and step.degraded_rounds >= 1 and step.bit_identical
+            and step.escaped_errors == [],
+            f"{what}, step_exception only: retries {step.step_retries}, degraded "
+            f"{step.degraded_rounds}, escaped {step.escaped_errors}, {step.mismatches[:3]}")
+    log(f"    step_exception only: fired {step.fired['step_exception']}, step retries "
+        f"{step.step_retries}, degraded rounds {step.degraded_rounds}; healthy outputs "
+        f"bit-identical after the restored chunks were re-fed")
+    cut = dataclasses.replace(full, **CHAOS_CUT)
+    runs = {d: KeepFaulted(ChaosHarness(cut, cfg, device=d)) for d in (dev, "cpu")}
+    reps = {d: k.harness.run() for d, k in runs.items()}
+
+    def fields(r):
+        return (r.fired, r.quarantines, r.evictions, r.degraded_rounds, r.step_retries,
+                r.demotions, r.healthy_windows, r.shed, r.escaped_errors, r.bit_identical,
+                [(e.kind, e.sid, e.time_s) for e in r.errors])
+
+    require(fields(reps[dev]) == fields(reps["cpu"]),
+            f"{what} cut: cuda {fields(reps[dev])} vs cpu {fields(reps['cpu'])}")
+    require(reps[dev].bit_identical and reps[dev].escaped_errors == [], f"{what} cut: {reps[dev]}")
+    gpu_parts, cpu_parts = (runs[d].faulted["healthy_parts"] for d in (dev, "cpu"))
+    for sid, parts in gpu_parts.items():
+        compare_parts(concat_parts(parts), concat_parts(cpu_parts[sid]),
+                      f"{what} cut, healthy session {sid}, cuda vs cpu", exact=False)
+    log(f"    cut ({cut.n_sensors} sensors, {cut.n_rounds} rounds, tiers {cut.tiers}): report and "
+        f"healthy outputs equal on the card and the cpu")
+    return dict(launches=counts, wall_s=wall, rounds=lat)
+
+
+def constellation_schedule() -> dict:
+    """Round -> [(op, arg)] of 7b: 32 sessions at round 0, then every
+    CONST_CHURN_EVERY rounds the oldest leaves and a new one joins."""
+    sched = {0: [("attach", k) for k in range(CONST_SESSIONS)]}
+    live, nxt = list(range(CONST_SESSIONS)), CONST_SESSIONS
+    for r in range(CONST_CHURN_EVERY, CONST_ROUNDS, CONST_CHURN_EVERY):
+        sched[r] = [("detach", live.pop(0)), ("attach", nxt)]
+        live.append(nxt)
+        nxt += 1
+    return sched
+
+
+class ExchangeCheck:
+    """The exchange's per-round bound and telescoping identity on every
+    push. The bound is the reference test's, |deq - (plane + ef_prev)| <=
+    scale / 2 + 1e-5, in float32, plus two float32 ulps of the plane's
+    largest corrected value (the roundings of the quotient and of q *
+    scale). The identity: over a run of pushes at one plane shape, the
+    published sum equals the exact sum plus the residual before the run
+    minus the residual after it (rtol 1e-5, atol 1e-3, as the reference's
+    test). Each push is logged by reference to its device tensors, with
+    no synchronization, and checked after its round, outside the timing."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.log = []
+        self.runs = {}  # shard -> [exact sum, published sum, residual at the start, residual now]
+        self.rounds = 0
+        self.worst = 0.0  # largest |deq - (plane + ef_prev)| / scale
+        push = ex.push_round
+
+        def logged(shard, round_):
+            ef_prev, n = ex._ef[shard], ex.rounds
+            push(shard, round_)
+            if ex.rounds != n:
+                self.log.append((shard, round_, ef_prev, ex._latest[shard], ex._scale[shard], ex._ef[shard]))
+
+        ex.push_round = logged
+
+    def _close(self, shard) -> None:
+        import numpy as np
+
+        exact, pub, ef0, ef = self.runs.pop(shard)
+        want = exact + ef0 - ef
+        require(np.allclose(pub, want, rtol=1e-5, atol=1e-3),
+                f"[7b] exchange telescoping, shard {shard}: max err {float(np.abs(pub - want).max())}")
+
+    def check(self) -> None:
+        import numpy as np
+
+        from repro_torch.serve import CrossShardExchange
+
+        for shard, rnd, ef_prev, deq, scale, ef in self.log:
+            exact = CrossShardExchange.summary_plane(rnd).cpu().numpy()
+            prev = np.zeros_like(exact)
+            if ef_prev is not None:
+                e = ef_prev.cpu().numpy()
+                keep = min(e.shape[0], exact.shape[0])
+                prev[:keep] = e[:keep]  # the push's resize: kept rows carry, new rows start clean
+            corrected = exact + prev
+            deq, scale = deq.cpu().numpy(), float(scale)
+            err = float(np.abs(deq - corrected).max())
+            tol = scale / 2 + 1e-5 + 2 * float(np.spacing(np.abs(corrected).max()))
+            require(err <= tol, f"[7b] exchange bound, shard {shard}: {err} > {tol}")
+            self.worst = max(self.worst, err / scale)
+            run = self.runs.get(shard)
+            if run is not None and run[0].shape != exact.shape:
+                self._close(shard)
+                run = None
+            if run is None:
+                run = self.runs[shard] = [np.zeros(exact.shape), np.zeros(exact.shape), prev.astype(np.float64), None]
+            run[0] += exact
+            run[1] += deq
+            run[3] = ef.cpu().numpy().astype(np.float64)
+            self.rounds += 1
+        self.log.clear()
+
+    def finish(self) -> None:
+        self.check()
+        for shard in list(self.runs):
+            self._close(shard)
+
+
+def check_constellation(cfg, dev) -> dict:
+    """7b: the constellation's schedule on the card, every session against
+    a dedicated StreamingPipeline on the card, the exchange's bounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AdmissionConfig, ConstellationService, FaultConfig
+    from repro_torch.serve.chaos import _FakeClock, _FlakyFleet
+    from repro_torch.serve.sessions import LIVE
+
+    sched = constellation_schedule()
+    n_keys = 1 + max(k for evs in sched.values() for _, k in evs)
+    recs = service_recordings(n_keys)
+    chunks = {k: list(iter_chunks(rec, CHUNK_US)) for k, rec in enumerate(recs)}
+    clock = _FakeClock()
+    cs = ConstellationService(
+        cfg, n_shards=CONST_SHARDS, tiers=CONST_TIERS,
+        admission=AdmissionConfig(max_delay_s=0.02, max_items=250 * 16),
+        faults=FaultConfig(degrade_on_step_failure=True, max_step_retries=0),
+        rescue_after_degraded_rounds=2, exchange="int8_ef", devices=[dev],
+        clock=clock, sleep=lambda s: None,
+    )
+    check = ExchangeCheck(cs.exchange)
+    gid, key, start, fed, parts, ms = {}, {}, {}, {}, {}, []
+    stalled = None
+    ops.reset_launches()
+    t_wall = time.perf_counter()
+    for r in range(CONST_ROUNDS):
+        t0 = time.perf_counter()
+        clock.now += CHUNK_US / 1e6
+        got = []
+        for op, k in sched.get(r, ()):
+            if op == "detach":
+                parts[k].append(cs.detach(gid.pop(k)))
+            else:
+                gid[k], start[k], fed[k], parts[k] = cs.attach(recs[k].name), r, [], []
+                key[gid[k]] = k
+        if r == CONST_MIGRATE_AT:
+            g = gid[min(gid)]
+            cs.migrate(g, (cs.shard_of(g) + 1) % CONST_SHARDS)
+        if r == CONST_REBALANCE_AT:  # unbalance shard 0 -> 1, then a forced sweep
+            for g in sorted(cs.shard(0).local_to_global.values())[-4:]:
+                cs.migrate(g, 1)
+            moves = cs.rebalance()
+            require(moves >= 1 and max(cs.loads) - min(cs.loads) <= cs.rebalance_margin,
+                    f"[7b] rebalance: {moves} moves, loads {cs.loads}")
+        if r == CONST_STALL[0]:
+            stalled = _FlakyFleet(cs.shard(CONST_STALL_SHARD).service._fleet)
+            stalled.fail_next = 10**9
+            cs.shard(CONST_STALL_SHARD).service._fleet = stalled
+        if r == CONST_STALL[1] + 1:
+            stalled.fail_next = 0
+        if r == CONST_REVIVE_AT:
+            require(cs.down_shards == [CONST_STALL_SHARD], f"[7b] down shards {cs.down_shards}")
+            cs.revive_shard(CONST_STALL_SHARD)
+        for k, g in gid.items():
+            i = r - start[k]
+            if i < len(chunks[k]):
+                fed[k].append(chunks[k][i])
+                got += cs.feed(g, *chunks[k][i])
+        got += cs.pump(force=True)
+        for f in got:
+            f.result  # noqa: B018 - a client reads its results
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for f in got:
+            parts[key[f.gid]].append(f.result)
+        check.check()
+    require(all(cs.session(g).state == LIVE for g in gid.values()) and cs.n_sessions == len(gid),
+            f"[7b] sessions lost: {cs.n_sessions} live of {len(gid)}")
+    loads = cs.loads
+    for k in list(gid):
+        parts[k].append(cs.detach(gid.pop(k)))
+    cs.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_wall
+    counts = dict(ops.LAUNCHES)
+    check.finish()
+    path_launches("float", counts, "[7b] constellation")
+    require(cs.rescues == 1 and cs.down_shards == [], f"[7b] rescues {cs.rescues}, down {cs.down_shards}")
+    degraded = [sh.service.degraded_rounds for sh in cs._shards]
+    require(degraded[CONST_STALL_SHARD] >= 2 and sum(degraded) == degraded[CONST_STALL_SHARD],
+            f"[7b] degraded rounds per shard {degraded}")
+    windows = 0
+    for k, chunk_list in fed.items():
+        sp = StreamingPipeline(cfg, wire="ragged", device=dev)
+        want = [sp.feed(*c) for c in chunk_list] + [sp.flush()]
+        compare_parts(concat_parts(parts[k]), concat_parts(want),
+                      f"[7b] constellation session {k} vs its dedicated stream")
+        windows += sum(p.num_windows for p in parts[k])
+    st = cs.exchange.stats
+    require(st["rounds"] == check.rounds and st["rounds"] > 0, f"[7b] exchange rounds {st}")
+    lat = round_stats(ms)
+    log(f"[7b] constellation, float path: {CONST_SHARDS} shards on {dev} (tiers {CONST_TIERS}), "
+        f"{n_keys} sessions ({CONST_SESSIONS} live, one out and one in every {CONST_CHURN_EVERY} "
+        f"rounds), {CONST_ROUNDS} rounds; migrations {cs.migrations}, rebalances {cs.rebalances}, "
+        f"rescues {cs.rescues} (shard {CONST_STALL_SHARD} stalled rounds {CONST_STALL[0]}-"
+        f"{CONST_STALL[1]}, degraded rounds {degraded}, revived at {CONST_REVIVE_AT}); loads at the "
+        f"end {loads}; {windows} windows; every session, detach tail included, equal to its "
+        f"dedicated StreamingPipeline on the card; no session lost; launches {counts}")
+    log(f"    exchange: {st['rounds']} published planes, compression_ratio "
+        f"{st['compression_ratio']:.3f} ({st['wire_bytes']} vs {st['exact_bytes']} bytes); every "
+        f"round within scale / 2 (worst {check.worst:.4f} scale) and the telescoping identity held")
+    log(f"    per-round latency (host clock, churn + feeds + forced pump on every up shard + "
+        f"results read, synchronize per round): p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms, "
+        f"max {lat['max']:.3f} ms (budget {BUDGET_MS} ms); {windows / wall:.0f} windows/s wall "
+        f"({wall:.2f} s with the final detaches); slowest rounds (index, ms): " + ", ".join(
+            f"({i}, {ms[i]:.3f})" for i in np.argsort(ms)[::-1][:3]))
+    return dict(launches=counts, wall_s=wall, rounds=lat, windows=windows,
+                compression_ratio=st["compression_ratio"])
+
+
+def check_shard_chaos(cfg, dev) -> dict:
+    """7c: the shard chaos harness at full width on the card."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ShardChaosConfig, ShardChaosHarness
+
+    harness = ShardChaosHarness(ShardChaosConfig(**SHARD_CHAOS), cfg, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rep = harness.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    path_launches("float", counts, "[7c] shard chaos")
+    require(rep.bit_identical and rep.healthy_windows > 0, f"[7c] shard chaos: {rep.mismatches[:5]}")
+    require(rep.rescues >= 1 and rep.lost_sessions == 0 and rep.escaped_errors == [],
+            f"[7c] shard chaos: rescues {rep.rescues}, lost {rep.lost_sessions}, escaped "
+            f"{rep.escaped_errors}")
+    lat = round_stats(rep.round_times_ms)
+    log(f"[7c] shard chaos, float path: {SHARD_CHAOS['n_shards']} shards, "
+        f"{SHARD_CHAOS['n_sensors']} sensors ({SHARD_CHAOS['n_faulty']} faulty), "
+        f"{SHARD_CHAOS['n_rounds']} rounds; fired {rep.fired}; migrations {rep.migrations}, "
+        f"rebalances {rep.rebalances}, rescues {rep.rescues}, lost sessions 0, quarantines "
+        f"{rep.quarantines}, evictions {rep.evictions}, degraded rounds {rep.degraded_rounds}; "
+        f"escaped errors none; {rep.healthy_windows} healthy windows bit-identical to dedicated "
+        f"streams; exchange {rep.exchange}; launches {counts}; wall {wall:.2f} s")
+    log(f"    faulted rounds (host clock, depth 2 per shard, no synchronize): p50 {lat['p50']:.3f} "
+        f"ms, p99 {lat['p99']:.3f} ms, max {lat['max']:.3f} ms; slowest rounds (index, ms, faults "
+        f"scheduled): {slowest_rounds(rep.round_times_ms, harness.schedule())}")
+    return dict(launches=counts, wall_s=wall, rounds=lat)
+
 
 def main() -> int:
     import torch
@@ -2011,6 +2387,14 @@ def main() -> int:
     check_table1(dev, scale)
     log(f"[6] phase wall time {time.perf_counter() - t6:.1f} s")
 
+    # Phase 7: fault injection and scale-out serving, each run's counters
+    # set to 0 just before it.
+    t7 = time.perf_counter()
+    chaos = {name: check_chaos(name, c, dev) for name, c in (("float", cfg), ("fixed", fixed))}
+    constellation = check_constellation(cfg, dev)
+    shard_chaos = check_shard_chaos(cfg, dev)
+    log(f"[7] phase wall time {time.perf_counter() - t7:.1f} s")
+
     rows = []
     for name, r in kernels.items():
         row = dict(
@@ -2032,6 +2416,16 @@ def main() -> int:
                 row["service_launches_on"] = (
                     f"DetectionService, {path} path, {SERVICE_FULL['rounds']} rounds of the "
                     f"phase-6 schedule at depth 1")
+                row["chaos_launches"] = chaos[path]["launches"][name]
+                row["chaos_launches_on"] = (
+                    f"ChaosHarness.run, {path} path, {CHAOS_FULL['n_sensors']} sensors, "
+                    f"{CHAOS_FULL['n_rounds']} rounds (faulted run and fault-free twin)")
+        if name in SERVICE_KERNELS["float"]:
+            row["constellation_launches"] = constellation["launches"][name]
+            row["shard_chaos_launches"] = shard_chaos["launches"][name]
+            row["constellation_launches_on"] = (
+                f"ConstellationService, float path, {CONST_SHARDS} shards, {CONST_ROUNDS} rounds; "
+                f"shard_chaos_launches: ShardChaosHarness.run, {SHARD_CHAOS['n_rounds']} rounds")
         if name in NO_PATH:
             row["path"] = "no path (tests only, as in the reference); launches are phase 2's"
         else:

@@ -720,13 +720,14 @@ def unpack_wire(
     ps = ((pol[:, None] >> shifts[None, :]) & 1).reshape(-1).to(torch.int32)
     pos = spill[0].to(torch.int64)
     pos = torch.where(pos < 0, pos + n, pos)
-    keep = (pos >= 0) & (pos < n)
-    pos = pos[keep]
+    # Dropped entries land in a dump slot past the lane: an index, not a
+    # boolean mask, so the overlay never waits for the device.
+    pos = torch.where((pos >= 0) & (pos < n), pos, n)
     planes = []
     for lane, row in zip((xs, ys, ts, ps), spill[1:]):
-        lane = lane.to(torch.int32).clone()
-        lane[pos] = row[keep].to(torch.int32)
-        planes.append(lane)
+        lane = torch.cat([lane.to(torch.int32), lane.new_zeros(1, dtype=torch.int32)])
+        lane[pos] = row.to(torch.int32)
+        planes.append(lane[:n])
     off = offsets.to(torch.int64)
     counts = off[:, 1:] - off[:, :-1]  # (S, W)
     slot = torch.arange(capacity, dtype=torch.int64, device=off.device)

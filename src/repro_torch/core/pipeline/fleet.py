@@ -266,6 +266,9 @@ class FleetResult:
     _carry_tracks: TrackState  # (S, T) carry after this round
     _event: object | None = None  # torch.cuda.Event after the round's last launch
     _host: tuple | None = None
+    # (S,) int32 n_windows on the round's device (None if nothing closed):
+    # device-side consumers read it without a host-to-device copy.
+    n_windows_t: torch.Tensor | None = None
 
     @property
     def n_sensors(self) -> int:
@@ -766,8 +769,11 @@ class FleetPipeline:
                 packed_in, valid_in = self._wire(*(ship(v) for v in views), cap)
         else:
             packed_in, valid_in = ship(staging.packed_t), ship(staging.valid_t)
+        meta = ship(staging.meta_t)
+        if meta is staging.meta_t:  # no copy on the CPU; the set is refilled later
+            meta = meta.clone()
         final_tracks, clusters, mets, states, atlas = self._step(
-            packed_in, valid_in, st.tracks, atlas_in, ship(staging.meta_t)[1],
+            packed_in, valid_in, st.tracks, atlas_in, meta[1],
         )
         event = None
         if dev.type == "cuda":
@@ -784,7 +790,7 @@ class FleetPipeline:
             tracks=states if self.with_tracking else None,
             final_tracks=final_tracks,
             _config=self.config, _with_tracking=self.with_tracking,
-            _carry_tracks=final_tracks, _event=event,
+            _carry_tracks=final_tracks, _event=event, n_windows_t=meta[1],
         ))
         staging.inflight = pending
         return pending

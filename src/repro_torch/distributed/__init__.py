@@ -1,2 +1,3 @@
-"""Fleet carry migration (``sharding``) and session liveness
-(``fault_tolerance``). Sharding over a device mesh is not ported yet."""
+"""Fleet carry migration (``sharding``), session liveness
+(``fault_tolerance``) and int8 quantization with error feedback
+(``compression``). Sharding over a device mesh is not ported yet."""

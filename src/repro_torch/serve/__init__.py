@@ -1,5 +1,5 @@
 """The detection-serving stack of the port (``repro.serve`` without the
-LM engine, the chaos harnesses and the constellation layer).
+LM engine).
 
 * ``batcher``  — the paper's dual-threshold admission policy as a
   generic, fake-clock-testable primitive.
@@ -11,11 +11,37 @@ LM engine, the chaos harnesses and the constellation layer).
 * ``service``  — :class:`DetectionService`: micro-batched detection
   serving over the slot-pooled fleet on the card, with per-session
   fault isolation and session export / adopt.
+* ``chaos``    — deterministic seeded fault-injection harness pinning
+  the isolation and bit-identity guarantees.
+* ``constellation`` — :class:`ConstellationService`: sensor sessions
+  partitioned over N service shards (one device each, or sharing one),
+  with the placement/rebalance planner, whole-shard rescue, and the
+  compressed cross-shard exchange (DESIGN.md Sec. 15).
+* ``chaos_shards`` — the shard-level chaos harness (whole-shard stalls,
+  forced migrations/rebalances on top of the per-sensor taxonomy).
 """
 from repro_torch.serve.batcher import (  # noqa: F401
     AdmissionConfig,
     DualThresholdAdmitter,
     drain,
+)
+from repro_torch.serve.chaos import (  # noqa: F401
+    FAULT_TAXONOMY,
+    ChaosConfig,
+    ChaosHarness,
+    ChaosReport,
+)
+from repro_torch.serve.chaos_shards import (  # noqa: F401
+    SHARD_FAULT_TAXONOMY,
+    ShardChaosConfig,
+    ShardChaosHarness,
+    ShardChaosReport,
+)
+from repro_torch.serve.constellation import (  # noqa: F401
+    ConstellationFeed,
+    ConstellationService,
+    CrossShardExchange,
+    partition_devices,
 )
 from repro_torch.serve.faults import (  # noqa: F401
     FaultConfig,

@@ -749,3 +749,98 @@ def test_baselines_and_quantize_packed_on_card(cuda_dev):
         k1 = ops.grid_quantize_packed(words.to(torch.int32), cell)
         assert ops.LAUNCHES["grid_quantize_packed"] == before + 1
         assert torch.equal(k1.to(torch.int64) & 0xFFFFFFFF, quantize_packed(words, cell))
+
+
+def _chaos_report(rep) -> dict:
+    """A chaos report's deterministic fields (all but the wall times;
+    error records by kind, session id and fake-clock time)."""
+    d = {k: getattr(rep, k) for k in (
+        "rounds", "fired", "quarantines", "evictions", "degraded_rounds", "step_retries",
+        "demotions", "healthy_windows", "shed", "escaped_errors", "bit_identical")}
+    d["errors"] = [(e.kind, e.sid, e.time_s) for e in rep.errors]
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "fixed"])
+def test_chaos_cut_on_card_equals_cpu(cuda_dev, path):
+    """The cut of ``chip_smoke.py`` phase 7a (5 sensors, 4 of them faulty,
+    32 rounds, tiers 4 and 8, 400-event chunks, 6000-event bursts) on the
+    card and on the CPU: equal reports, the invariants, and the healthy
+    session's outputs equal (integers exactly, metrics to rtol = atol =
+    1e-5, tracker floats rtol 1e-6, atol 1e-4); the path's kernels ran."""
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.serve.chaos import ChaosConfig, ChaosHarness, concat_outputs
+
+    cfg = (PipelineConfig(use_kernels=True, metrics_impl="kernel") if path == "float"
+           else PipelineConfig(numerics="fixed", metrics_impl="megakernel"))
+    own = ("event_unpack", "cluster_accum", "patch_metrics") if path == "float" else ("window_pipeline",)
+    cut = ChaosConfig(n_sensors=5, n_faulty=4, n_rounds=32, seed=7, chunk_events=400,
+                      burst_events=6000, queue_budget_events=3200, tiers=(4, 8))
+
+    class Keep(ChaosHarness):
+        def _run_faulted(self):
+            self.faulted = super()._run_faulted()
+            return self.faulted
+
+    ops.reset_launches()
+    gpu = Keep(cut, cfg, device=cuda_dev)
+    g = gpu.run()
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[k] > 0 for k in own), ops.LAUNCHES
+    cpu = Keep(cut, cfg, device="cpu")
+    c = cpu.run()
+    assert g.bit_identical and g.escaped_errors == [] and g.shed["exact"], g.mismatches
+    assert _chaos_report(g) == _chaos_report(c)
+    for sid, parts in gpu.faulted["healthy_parts"].items():
+        got = concat_outputs(parts)
+        want = concat_outputs(cpu.faulted["healthy_parts"][sid])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            if np.issubdtype(a.dtype, np.floating):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "fixed"])
+def test_exchange_push_leaves_the_device_busy(cuda_dev, path):
+    """A constellation pump on the card, exchange push included, does not
+    synchronize: with the stream held busy by a spin kernel, the round is
+    dispatched and its summary plane published, and the stream's work is
+    still unfinished right after ``pump`` returns. On the fixed path the
+    wire is decoded by the plain route, which must not wait either."""
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.synthetic import make_fleet_recordings
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.serve import AdmissionConfig, ConstellationService
+
+    cfg = (PipelineConfig(use_kernels=True, metrics_impl="kernel") if path == "float"
+           else PipelineConfig(numerics="fixed", metrics_impl="megakernel"))
+    clock = [0.0]
+    cs = ConstellationService(cfg, n_shards=2,
+                              tiers=(2, 4), admission=AdmissionConfig(max_delay_s=1e9, max_items=1 << 30),
+                              devices=[cuda_dev], clock=lambda: clock[0])
+    recs = make_fleet_recordings(4, duration_s=0.5)
+    feeds = {cs.attach(r.name): iter(list(iter_chunks(r, 20_000))) for r in recs}
+
+    def feed_all():
+        clock[0] += 0.02
+        for gid, it in feeds.items():
+            cs.feed(gid, *next(it))
+
+    for _ in range(4):  # warm-up: staging sets, the caching allocator
+        feed_all()
+        cs.pump(force=True)
+    torch.cuda.synchronize()
+    feed_all()
+    pushed = cs.exchange.rounds
+    torch.cuda._sleep(2_000_000_000)  # about a second of device time
+    cs.pump(force=True)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert cs.exchange.rounds > pushed  # the round was published
+    assert busy, "pump or the exchange push synchronized with the device"
+    for p in cs.exchange.view().values():
+        assert np.isfinite(p).all()

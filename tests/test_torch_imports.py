@@ -38,13 +38,16 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.data.synthetic", "repro_torch.core.grid_clustering",
               "repro_torch.core.baselines", "repro_torch.distributed.fault_tolerance",
               "repro_torch.serve", "repro_torch.serve.batcher", "repro_torch.serve.sessions",
-              "repro_torch.serve.faults", "repro_torch.serve.service"):
+              "repro_torch.serve.faults", "repro_torch.serve.service",
+              "repro_torch.distributed.compression", "repro_torch.serve.chaos",
+              "repro_torch.serve.constellation", "repro_torch.serve.chaos_shards"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",
         "event_unpack", "grid_quantize", "window_entropy"}
     assert {p.name for p in (REPO / "examples").glob("torch_*.py")} == {
-        "torch_quickstart.py", "torch_fleet_quickstart.py", "torch_serve_detections.py"}
+        "torch_quickstart.py", "torch_fleet_quickstart.py", "torch_serve_detections.py",
+        "torch_stream_quickstart.py", "torch_constellation_quickstart.py"}
 
 
 def test_importing_every_module_loads_no_jax():
@@ -86,7 +89,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     )
     from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
     from repro_torch.data.synthetic import make_recording
-    from repro_torch.serve import DetectionService
+    from repro_torch.serve import (
+        ChaosConfig, ChaosHarness, ConstellationService, DetectionService, ShardChaosConfig,
+        ShardChaosHarness,
+    )
 
     rec = make_recording(seed=1, duration_s=0.05)
     for call in (
@@ -120,6 +126,15 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: DetectionService(PipelineConfig(use_kernels=True, metrics_impl="kernel")),
         lambda: DetectionService(PipelineConfig(numerics="fixed", metrics_impl="megakernel"),
                                  tiers=(4, 8, 16, 32)),
+        lambda: ConstellationService(),
+        lambda: ConstellationService(PipelineConfig(use_kernels=True, metrics_impl="kernel"),
+                                     n_shards=4, tiers=(4, 8, 16)),
+        lambda: ConstellationService(devices=["cuda"]),
+        lambda: ChaosHarness().run(),
+        lambda: ChaosHarness(ChaosConfig(n_sensors=16, n_faulty=4),
+                             PipelineConfig(numerics="fixed", metrics_impl="megakernel")).run(),
+        lambda: ShardChaosHarness().run(),
+        lambda: ShardChaosHarness(ShardChaosConfig(n_shards=4)).run(),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -187,3 +202,39 @@ def test_example_serve_detections_runs_on_the_cpu_when_asked(numerics):
     assert "(pool promoted: capacity 8, promotions 1)" in out.stdout
     assert "session 0 detached" in out.stdout and out.stdout.count("confirmed tracks at detach") == 5
     assert "Promotions 1, step retries 0, degraded rounds 0" in out.stdout
+
+
+def test_example_stream_quickstart_runs_on_the_cpu_when_asked():
+    """The port's stream example on the CPU prints the reference
+    example's windows, detections and tracks."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_stream_quickstart.py"), "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Processed 100 windows from 100 chunked feeds on cpu." in out.stdout
+    assert "Clusters passing min_events=5: 203" in out.stdout
+    assert "Confirmed tracks: 2" in out.stdout
+    assert "track 0: pos=( 267.1, 253.1) vel=(-1.98,-1.33) px/win hits=95" in out.stdout
+    assert "track 1: pos=( 453.2, 397.0) vel=(+2.27,+1.86) px/win hits=95" in out.stdout
+
+
+def test_example_constellation_quickstart_runs_on_the_cpu_when_asked():
+    """The port's constellation example on the CPU: the reference
+    example's placement, migration, rescue, revival and window count."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_constellation_quickstart.py"),
+         "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "constellation up: 2 shards on cpu, 8 slots total, exchange=int8_ef" in out.stdout
+    for i, fam in enumerate(("crossing", "geo_slow", "tumbling", "ballistic", "jitter", "crossing")):
+        assert f"+ station{i}-{fam} -> gid {i} on shard {i % 2}" in out.stdout
+    assert "placement: loads [3, 3]" in out.stdout
+    assert "migrated gid 0 to shard 1" in out.stdout
+    assert "shard 0 stalled -> rescued: down=[0], loads [0, 6], sessions lost: 0" in out.stdout
+    assert "shard 0 repaired and revived: down=[]" in out.stdout
+    assert "done: 114 windows, 3 migrations (1 rescue)" in out.stdout
