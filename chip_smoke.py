@@ -11,7 +11,10 @@ metrics_impl="kernel"``: the clustering stage is one launch of the
 fixed-point path (``numerics="fixed",
 metrics_impl="megakernel"``: the ``window_pipeline`` kernel) and the live
 ingest path (``FleetPipeline`` over the ragged wire, decoded by the
-``event_unpack`` kernel, then the float kernels).
+``event_unpack`` kernel, then the float kernels). Phase 8 also drives
+the reference's other two float routes, the frame oracle and the atlas
+event core (``cluster_accum`` on both, ``event_unpack`` on the live
+ingest path).
 
 Phases (any failure exits non-zero; no error is caught):
 
@@ -79,7 +82,27 @@ Phases (any failure exits non-zero; no error is caught):
    shard chaos harness (``ShardChaosHarness``), 4 shards, 16 sensors, 96
    rounds: bit-identical, a rescue, no lost session, nothing escaped.
    Each run's launch counters are set to 0 just before it; the slowest
-   faulted rounds are printed with the fault kinds scheduled in them.
+   faulted rounds are printed with the fault kinds scheduled in them;
+8. the reference's other float metric routes, the frame oracle
+   (``metrics_impl="frame"``) and the atlas event core (the default
+   ``metrics_impl="event"``): (a) the scale recording under the event,
+   frame and kernel routes with ``use_kernels=True`` and under
+   ``PipelineConfig()``: cluster fields, tracker integers and
+   tp/fp/fn/tn equal across the four, the event and frame metrics equal
+   bit for bit, the kernel route's within the stated bound,
+   ``cluster_accum`` launched on each kernel run, and the frame route
+   equal to its CPU run; (b) the event route's atlas over the ragged
+   stream of the scale recording's first 10 s (and a 2 s cut with a
+   forced tag rollover) equal to the CPU stream's, ``event_unpack``
+   launched, no host synchronization in the event core
+   (``torch.cuda.set_sync_debug_mode``); (c) a 16-sensor event-route
+   fleet, every sensor's exported atlas equal to its dedicated stream's,
+   and phase 6's session migration on the event route, atlas included;
+   (d) ``window_entropy`` on 64 real reconstructed frames against its
+   plain version and the frame oracle; (e) Fig. 7 (``metric_matrix``,
+   ``correlation_matrix``) on the card against the CPU run, the 6x6
+   matrix printed; (f) each route's untracked window core at scale (best
+   of 3), its profile and the atlas update's device ms.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -96,7 +119,10 @@ run.
 Then one JSON line of per-kernel numbers (with each path kernel's
 launches in phase 6's depth-1 service run as ``service_launches``, in
 phase 7a's chaos run as ``chaos_launches``, in 7b as
-``constellation_launches`` and in 7c as ``shard_chaos_launches``), the
+``constellation_launches`` and in 7c as ``shard_chaos_launches``; phase
+8's ``cluster_accum`` launches per route as ``routes_launches``, its
+``event_unpack`` launches as ``atlas_stream_launches`` and
+``window_entropy``'s real-frame check as ``real_frames``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. In that line a path
 kernel's ``launches`` count one pass of the scale recording through its
 path's driver (``LAUNCH_BASIS``), and its times are per launch of that
@@ -113,6 +139,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -213,6 +240,17 @@ CONST_CHURN_EVERY, CONST_MIGRATE_AT, CONST_REBALANCE_AT = 12, 30, 60
 CONST_STALL_SHARD, CONST_STALL, CONST_REVIVE_AT = 3, (80, 85), 100
 SHARD_CHAOS = dict(n_shards=4, n_sensors=16, n_faulty=4, n_rounds=96, seed=7, chunk_events=400,
                    burst_events=6000, queue_budget_events=3200)
+# Phase 8, the reference's other float routes: the four float route
+# configurations on the scale recording; the atlas of the ragged stream
+# over its first 10 s (compared every 50th feed) and over a 2 s cut with
+# a forced rollover; a 16-sensor event-route fleet of the phase-4
+# recordings cut to 4 s, each sensor against a dedicated stream fed in
+# 200 ms chunks; window_entropy on 64 real frames.
+ROUTES = (("event", dict(use_kernels=True)), ("frame", dict(use_kernels=True, metrics_impl="frame")),
+          ("kernel", dict(use_kernels=True, metrics_impl="kernel")), ("event, plain", {}))
+ATLAS_S, ATLAS_CUT_S, ATLAS_EVERY = 10, 2, 50
+ROUTE_FLEET_S, ROUTE_STREAM_US = 4, 200_000
+K6_WINDOWS = 64
 
 
 def log(*a):
@@ -539,8 +577,7 @@ def stride_blocks(rec, cfg, dev):
 
     from repro_torch.core.events import BatcherConfig, EventBatch, pad_windows
     from repro_torch.core.pipeline import config as C
-    from repro_torch.core.pipeline.scan import WINDOW_BLOCK
-    from repro_torch.core.pipeline.window_core import _cluster, _condition
+    from repro_torch.core.pipeline.window_core import WINDOW_BLOCK, _cluster, _condition
 
     cfg = dataclasses.replace(cfg, batcher=BatcherConfig(capacity=STRIDE_CAPACITY))
     win = pad_windows(rec.x, rec.y, rec.t, rec.p, cfg.batcher, dev, policy="stride", window_us=STRIDE_US)
@@ -1815,11 +1852,15 @@ def check_service(name: str, cfg, dev) -> dict:
     return row
 
 
-def check_migration(cfg, dev) -> None:
+def check_migration(cfg, dev, phase: int = 6) -> None:
     """A session exported on one device and adopted by a service on the
     other (through the numpy form), both ways, with chunks still queued
     at the export and a neighbour streaming on each side: equal to a
-    never-migrated stream on the card."""
+    never-migrated stream on the card, its atlas included (at the export,
+    that of a stream fed the chunks stepped so far; after the last chunk,
+    the never-migrated stream's)."""
+    import torch
+
     from repro_torch.core.pipeline import StreamingPipeline
     from repro_torch.data.evas import iter_chunks
     from repro_torch.serve import (
@@ -1831,7 +1872,13 @@ def check_migration(cfg, dev) -> None:
     cut = len(mover) // 2
     lazy = AdmissionConfig(max_delay_s=1e9, max_items=1 << 30)
     sp = StreamingPipeline(cfg, wire="ragged", device=dev)
-    never = concat_parts([sp.feed(*c) for c in mover] + [sp.flush()])
+    feeds = []
+    for i, c in enumerate(mover):
+        feeds.append(sp.feed(*c))
+        if i == cut - 3:
+            atlas_at_export = sp.state.atlas.clone()
+    atlas_at_end = sp.state.atlas.clone()
+    never = concat_parts(feeds + [sp.flush()])
     for src_dev, dst_dev in ((dev, "cpu"), ("cpu", dev)):
         src, dst = (DetectionService(cfg, tiers=(4,), admission=lazy, device=d)
                     for d in (src_dev, dst_dev))
@@ -1844,19 +1891,24 @@ def check_migration(cfg, dev) -> None:
                 parts += [fd.result for fd in src.pump(force=True) if fd.sid == s]
         require(src.session(s).queued_events > 0, "migration: nothing queued at the export")
         exp = session_export_from_numpy(session_export_to_numpy(src.export_session(s)))
+        what = f"session migrated {src_dev} -> {dst_dev}"
+        equal(torch.from_numpy(exp.carry.atlas), atlas_at_export, f"{what}: atlas at the export")
         dn = dst.attach("neighbour")
         dst.feed(dn, *other[0])
         new = dst.adopt_session(exp)
         for i in range(cut, len(mover)):
             dst.feed(new, *mover[i])
             parts += [fd.result for fd in dst.pump(force=True) if fd.sid == new]
+        dst.drain()
+        carry = dst._fleet.export_slot(dst.session(new).slot)
+        equal(torch.from_numpy(carry.atlas), atlas_at_end, f"{what}: atlas after the last chunk")
         parts.append(dst.detach(new))
         require_clean(src, "migration source")
         require_clean(dst, "migration destination")
-        compare_parts(concat_parts(parts), never, f"session migrated {src_dev} -> {dst_dev}",
-                      exact=False)
-    log(f"[6] a session exported on the card and adopted on the cpu, and the other way, "
-        f"{cut} chunks in, two still queued: equal to a never-migrated stream on the card")
+        compare_parts(concat_parts(parts), never, what, exact=False)
+    log(f"[{phase}] a session exported on the card and adopted on the cpu, and the other way, "
+        f"{cut} chunks in, two still queued: equal to a never-migrated stream on the card, "
+        f"atlas included ({int((atlas_at_end != 0).sum())} pixels written, {cfg.metrics_impl} route)")
 
 
 def check_table1(dev, scale) -> dict:
@@ -2237,6 +2289,372 @@ def check_shard_chaos(cfg, dev) -> dict:
     return dict(launches=counts, wall_s=wall, rounds=lat)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the reference's other float routes (the frame oracle, the atlas
+# event core) against each other and against the CPU.
+# ---------------------------------------------------------------------------
+
+def cut_recording(rec, seconds: float):
+    """The first ``seconds`` of a recording."""
+    import dataclasses
+
+    import numpy as np
+
+    n = int(np.searchsorted(rec.t, rec.t[0] + int(seconds * 1e6)))
+    return dataclasses.replace(rec, **{f: getattr(rec, f)[:n] for f in ("x", "y", "t", "p", "kind", "obj")})
+
+
+def route_config(name: str):
+    from repro_torch.core.pipeline import PipelineConfig
+
+    return PipelineConfig(**dict(ROUTES)[name])
+
+
+def check_routes(scale, kernel_run, dev) -> dict:
+    """(a) The scale recording through each float route configuration,
+    launch counters set to 0 just before each: ``run_recording_scan``
+    (tracked on the event route; the kernel route's tracked scan is phase
+    4's ``kernel_run``; the frame and plain event routes untracked, as
+    their tracker inputs are then held equal to the event route's bit for
+    bit) and ``evaluate_detection``. Cluster fields, tracker integers and
+    tp/fp/fn/tn equal across the four; the frame and plain event metrics
+    equal the event route's bit for bit, the kernel route's within the
+    stated bound; ``cluster_accum`` launched on each ``use_kernels`` run,
+    ``patch_metrics`` on the kernel route only. Then the frame route on
+    the CPU, untracked: integers equal to the card's, metrics within the
+    bound. Returns each route's run, score and launches, and the CPU run."""
+    import torch
+
+    from repro_torch.core.pipeline import evaluate_detection, run_recording_scan
+    from repro_torch.kernels import ops
+
+    runs = {}
+    for name, _ in ROUTES:
+        c = route_config(name)
+        if name == "kernel":
+            result, score = kernel_run
+            counts = None
+            wall = None
+        else:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            result = run_recording_scan(scale, c, with_tracking=name == "event", device=dev)
+            score = evaluate_detection(scale, c, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCHES)
+            require((counts["cluster_accum"] > 0) == c.use_kernels and counts["patch_metrics"] == 0,
+                    f"[8] {name} route: launches {counts}")
+        runs[name] = dict(result=result, score=score, launches=counts, wall_s=wall)
+    base = runs["event"]["result"]
+    err = 0.0
+    for name, r in runs.items():
+        res = r["result"]
+        require(res.num_windows == base.num_windows, f"[8] {name}: window count")
+        for f in res.clusters._fields:
+            equal(getattr(res.clusters, f), getattr(base.clusters, f), f"[8] {name} vs event: clusters.{f}")
+        require(r["score"] == runs["event"]["score"], f"[8] {name}: score {r['score']}")
+        if name == "kernel":
+            err = compare_metrics(res.metrics, base.metrics, "[8] kernel vs event")
+            for f in ("hits", "misses", "age", "active"):
+                equal(getattr(res.tracks, f), getattr(base.tracks, f), f"[8] kernel vs event: tracks.{f}")
+            for f in ("x", "y", "vx", "vy", "entropy"):
+                close(getattr(res.tracks, f), getattr(base.tracks, f), f"[8] kernel vs event: tracks.{f}",
+                      TRACK_RTOL, TRACK_ATOL)
+        else:
+            for k in res.metrics:
+                equal(res.metrics[k], base.metrics[k], f"[8] {name} vs event: {k}")
+    t0 = time.perf_counter()
+    cpu = run_recording_scan(scale, route_config("frame"), with_tracking=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    frame = runs["frame"]["result"]
+    for f in frame.clusters._fields:
+        equal(getattr(frame.clusters, f), getattr(cpu.clusters, f), f"[8] frame cuda vs cpu: clusters.{f}")
+    cpu_err = compare_metrics(frame.metrics, cpu.metrics, "[8] frame cuda vs cpu")
+    for name, r in runs.items():
+        s = r["score"]
+        log(f"[8] scale recording, {name} route ({dict(ROUTES)[name]}): {r['result'].num_windows} "
+            f"windows, {int(r['result'].clusters.valid.sum())} valid clusters, tp/fp/fn/tn "
+            f"{s.tp}/{s.fp}/{s.fn}/{s.tn}; "
+            + ("phase 4's tracked scan" if r["wall_s"] is None else
+               f"{'tracked' if name == 'event' else 'untracked'} scan + evaluate_detection "
+               f"{r['wall_s']:.2f} s, launches {r['launches']}"))
+    log(f"    cluster fields and tp/fp/fn/tn equal across the four routes, tracker integers equal "
+        f"(event vs kernel route); event, frame and plain event metrics equal bit for bit; kernel "
+        f"route max abs err {err:.3g}; frame route on the cpu, untracked ({cpu_s:.1f} s): integers "
+        f"equal, metrics max abs err {cpu_err:.3g}")
+    return dict(runs=runs, cpu=cpu, kernel_err=err, cpu_err=cpu_err)
+
+
+def check_atlas_stream(scale, dev) -> dict:
+    """(b) The scale recording's first ``ATLAS_S`` s through
+    ``StreamingPipeline(wire="ragged")`` on the event route, on the card
+    and on the CPU, in 20 ms chunks: the atlases equal after every
+    ``ATLAS_EVERY``-th feed and at the end; then its first ``ATLAS_CUT_S``
+    s with ``_tag_limit = 4`` (a rollover every few windows), compared
+    after every tenth feed. The card's launch counters are set to 0 just
+    before; ``event_unpack`` must have run."""
+    import torch
+
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.kernels import ops
+
+    cfg = route_config("event")
+    out = {}
+    for label, seconds, limit, every in (("epoch", ATLAS_S, None, ATLAS_EVERY),
+                                         ("rollover", ATLAS_CUT_S, 4, 10)):
+        rec = cut_recording(scale, seconds)
+        chunks = list(iter_chunks(rec, CHUNK_US))
+        gpu = StreamingPipeline(cfg, wire="ragged", device=dev)
+        cpu = StreamingPipeline(cfg, wire="ragged", device="cpu")
+        if limit:
+            gpu._tag_limit = cpu._tag_limit = limit
+        ops.reset_launches()
+        checks, rolled, windows = 0, 0, 0
+        for i, c in enumerate(chunks):
+            before = gpu.state.next_tag
+            windows += gpu.feed(*c).num_windows
+            cpu.feed(*c)
+            rolled += gpu.state.next_tag < before
+            if (i + 1) % every == 0:
+                equal(gpu.state.atlas, cpu.state.atlas, f"[8] atlas ({label}) after feed {i}")
+                checks += 1
+        windows += gpu.flush().num_windows
+        cpu.flush()
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        equal(gpu.state.atlas, cpu.state.atlas, f"[8] atlas ({label}) at the end")
+        require(gpu.state.next_tag == cpu.state.next_tag, f"[8] atlas ({label}): tags differ")
+        require(counts["event_unpack"] > 0 and counts["cluster_accum"] > 0,
+                f"[8] atlas ({label}): launches {counts}")
+        require(rolled > 0 if limit else rolled == 0, f"[8] atlas ({label}): {rolled} rollovers")
+        written = int((gpu.state.atlas != 0).sum())
+        log(f"[8] atlas on the card, ragged stream of the scale recording's first {seconds} s "
+            f"({len(chunks)} feeds, {windows} windows{', _tag_limit 4' if limit else ''}): equal to "
+            f"the cpu stream's at {checks + 1} checks, {rolled} rollovers, {written} pixels written "
+            f"at the end; launches {counts}")
+        out[label] = counts
+    return out
+
+
+def check_atlas_sync(scale, dev) -> dict:
+    """The event core's live path under ``torch.cuda.set_sync_debug_mode``:
+    one core call (tracked, 64 windows of the scale recording) under
+    "warn" must warn of no synchronizing call; the atlas update alone runs
+    under "error", where any synchronization raises."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core.events import EventBatch, pad_windows
+    from repro_torch.core.pipeline import make_atlas, make_core
+    from repro_torch.core.metrics import event_normalizer
+    from repro_torch.core.pipeline.event_core import _write_atlas
+    from repro_torch.core.pipeline.window_core import _condition
+    from repro_torch.core.tracking import init_tracks
+
+    cfg = route_config("event")
+    win = pad_windows(*(a[:20_000] for a in (scale.x, scale.y, scale.t, scale.p)), cfg.batcher, dev)
+    batch = EventBatch(*(a[:K6_WINDOWS] for a in win.batch))
+    core = make_core(cfg)
+    tracks, atlas = init_tracks(cfg.tracker, dev), make_atlas(cfg, device=dev)
+    core(batch, tracks, atlas, 3)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            core(batch, tracks, atlas, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
+    require(not syncs, f"[8] the event core synchronized the host: {sorted(set(syncs))[:3]}")
+    g = cfg.grid
+    cond = _condition(cfg, batch)
+    c, leader, _, _ = event_normalizer(cond, g.width, g.height)
+    ix = torch.arange(batch.x.shape[0], device=dev)
+    flat = atlas.clone().view(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _write_atlas(flat, cond, c, leader, ix, batch.x.shape[0], 3,
+                     max(batch.x.shape[-1].bit_length(), 1), atlas.numel(), atlas.shape[-1],
+                     g.height)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[8] event core under set_sync_debug_mode: no synchronizing call in one tracked core call "
+        f"of {batch.x.shape[0]} windows ('warn'); the atlas update alone ran under 'error'")
+    return dict(core_syncs=len(syncs))
+
+
+def check_route_fleet(fleet_recs, dev) -> None:
+    """(c) 16 sensors (the phase-4 recordings cut to ``ROUTE_FLEET_S`` s)
+    through one fleet on the event route, 20 ms rounds: every sensor's
+    exported tags and atlas, clusters and metrics equal to its dedicated
+    untracked stream's on the card, fed in ``ROUTE_STREAM_US`` chunks (the
+    outputs and the atlas do not depend on the split). Then phase 6's
+    session migration on the event route, atlas included."""
+    import torch
+
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+
+    cfg = route_config("event")
+    recs = [cut_recording(r, ROUTE_FLEET_S) for r in fleet_recs]
+    rounds = fleet_rounds(recs)
+    out, ms, _, fp = run_fleet(cfg, rounds, len(recs), dev)
+    written = 0
+    for s, rec in enumerate(recs):
+        sp = StreamingPipeline(cfg, with_tracking=False, wire="ragged", device=dev)
+        parts = [sp.feed(*c) for c in iter_chunks(rec, ROUTE_STREAM_US)] + [sp.flush()]
+        got = sensor_parts(out, s)
+        require(got["windows"] == sum(p.num_windows for p in parts), f"[8] event fleet sensor {s}: windows")
+        for k, v in got["clusters"].items():
+            equal(v, torch.cat([getattr(p.clusters, k) for p in parts]),
+                  f"[8] event fleet sensor {s} vs stream: clusters.{k}")
+        for k, v in got["metrics"].items():
+            equal(v, torch.cat([p.metrics[k] for p in parts]), f"[8] event fleet sensor {s} vs stream: {k}")
+        carry = fp.export_slot(s)
+        require(carry.cursor.next_tag == sp.state.next_tag, f"[8] event fleet sensor {s}: tags")
+        equal(torch.from_numpy(carry.atlas), sp.state.atlas, f"[8] event fleet sensor {s}: atlas")
+        written += int((sp.state.atlas != 0).sum())
+    log(f"[8] event route fleet: {len(recs)} sensors of {ROUTE_FLEET_S} s, {len(rounds)} rounds, "
+        f"{sum(r.total_windows for r in out)} windows, round p50 {statistics.median(ms):.2f} ms; every "
+        f"sensor's clusters, metrics, tags and exported atlas equal to its dedicated stream's on the "
+        f"card ({written} atlas pixels written in all)")
+    check_migration(cfg, dev, phase=8)
+
+
+def check_k6_real_frames(scale, routes, dev) -> dict:
+    """(d) ``reconstruct_frame`` of the first ``K6_WINDOWS`` conditioned
+    scale windows that hold a valid cluster, and the frame route's valid
+    clusters there, centres rounded:
+    ``window_entropy`` (one launch a frame) against its plain version
+    under phase 2's tolerance, its Shannon and Renyi entropy against
+    ``cluster_metrics_frame``'s and its contrast against ``local_contrast``
+    of the same patch, within the stated bound."""
+    import torch
+
+    from repro_torch.core import metrics as M
+    from repro_torch.core.events import EventBatch, pad_windows
+    from repro_torch.core.pipeline.window_core import _condition
+    from repro_torch.kernels import ops, ref
+
+    cfg = route_config("frame")
+    frame_run = routes["runs"]["frame"]["result"]
+    win = pad_windows(scale.x, scale.y, scale.t, scale.p, cfg.batcher, dev)
+    # The first K6_WINDOWS windows that hold a valid cluster.
+    pick = torch.nonzero(frame_run.clusters.valid.any(-1)).flatten()[:K6_WINDOWS]
+    batch = _condition(cfg, EventBatch(*(a[pick] for a in win.batch)))
+    frames = M.reconstruct_frame(batch, cfg.grid.width, cfg.grid.height)
+    cl = type(frame_run.clusters)(*(a[pick] for a in frame_run.clusters))
+    mets = {k: v[pick] for k, v in frame_run.metrics.items()}
+    ops.reset_launches()
+    plain_err = oracle_err = 0.0
+    n_clusters = 0
+    calls = []
+    for w in range(len(pick)):
+        sel = cl.valid[w]
+        cx = torch.round(cl.centroid_x[w][sel]).to(torch.int32).contiguous()
+        cy = torch.round(cl.centroid_y[w][sel]).to(torch.int32).contiguous()
+        if cx.numel() == 0:
+            continue
+        n_clusters += cx.numel()
+        f = frames[w].contiguous()
+        got = ops.window_entropy(f, cx, cy)
+        calls.append(((f, cx, cy), {}))
+        plain_err = max(plain_err, close(got, ref.window_entropy_ref(f, cx, cy),
+                                         f"[8] window_entropy vs plain, window {w}",
+                                         ENTROPY_RTOL, ENTROPY_ATOL))
+        oracle_err = max(oracle_err, close(got[0], mets["shannon_entropy"][w][sel],
+                                           f"[8] window_entropy vs frame oracle: shannon, window {w}"))
+        oracle_err = max(oracle_err, close(got[1], mets["renyi_entropy"][w][sel],
+                                           f"[8] window_entropy vs frame oracle: renyi, window {w}"))
+        patches = M.extract_window(f, cl.centroid_x[w][sel], cl.centroid_y[w][sel])
+        oracle_err = max(oracle_err, close(got[2], M.local_contrast(patches),
+                                           f"[8] window_entropy vs local_contrast, window {w}"))
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["window_entropy"]
+    require(launches == len(calls) > 0, f"[8] window_entropy launches {launches}, calls {len(calls)}")
+    ms = kernel_device_ms(lambda: replay(ops.window_entropy, calls), ("window_entropy",),
+                          iters=5) / len(calls)
+    require(len(calls) == K6_WINDOWS, f"[8] window_entropy: {len(calls)} frames with a valid cluster")
+    log(f"[8] window_entropy on {len(calls)} real frames ({n_clusters} valid clusters, centres rounded): "
+        f"against its plain version max abs err {plain_err:.3g}; against the frame oracle (shannon, "
+        f"renyi) and local_contrast max abs err {oracle_err:.3g}; {ms:.4f} ms a launch alone")
+    return dict(launches=launches, max_abs_err=plain_err, oracle_err=oracle_err, ms=ms,
+                clusters=n_clusters)
+
+
+def check_fig7(routes, dev) -> None:
+    """(e) Fig. 7 on the card: ``metric_matrix`` of the frame route's
+    valid clusters over the scale recording and its ``correlation_matrix``,
+    against the CPU run's within the stated bound."""
+    import torch
+
+    from repro_torch.core import metrics as M
+
+    gpu = routes["runs"]["frame"]["result"]
+    cpu = routes["cpu"]
+    sg = M.metric_matrix(gpu.metrics)[gpu.clusters.valid]
+    sc = M.metric_matrix(cpu.metrics)[cpu.clusters.valid]
+    close(sg, sc, "[8] metric_matrix, cuda vs cpu")
+    cg, cc = M.correlation_matrix(sg), M.correlation_matrix(sc)
+    err = close(cg, cc, "[8] correlation_matrix, cuda vs cpu")
+    require(bool(torch.isfinite(cg).all()), "[8] correlation_matrix: not finite")
+    names = [n.replace("_entropy", "").replace("_", " ") for n in M.METRIC_NAMES]
+    log(f"[8] Fig. 7 on the card: {sg.shape[0]} valid clusters x {sg.shape[1]} metrics; correlation "
+        f"within the bound of the cpu run's (max abs err {err:.3g}):")
+    log("    " + " ".join(f"{n[:10]:>10}" for n in [""] + names))
+    for n, row in zip(names, cg.cpu().tolist()):
+        log("    " + f"{n[:10]:>10} " + " ".join(f"{v:10.4f}" for v in row))
+
+
+def route_times(scale, dev) -> dict:
+    """(f) For each route: the untracked window core at scale (best of 3,
+    closed by a synchronize), a profile of it (host ms, device-busy ms,
+    device kernels per block in each stage) and the atlas update's own
+    device ms."""
+    from repro_torch.core.events import pad_windows
+    from repro_torch.core.pipeline import run_recording_scan
+
+    stages = ("conditioning", "clustering", "metrics", "atlas")
+    win = pad_windows(scale.x, scale.y, scale.t, scale.p, route_config("event").batcher, dev)
+    out = {}
+    for name, _ in ROUTES:
+        c = route_config(name)
+        core_ms, _ = best_ms(lambda: run_recording_scan(scale, c, with_tracking=False, windows=win, device=dev))
+        prof = window_core_profile(scale, c, dev, win, stages)
+        out[name] = dict(window_core_ms=core_ms, host_ms=prof["host_ms"],
+                         device_busy_ms=prof["device_busy_ms"],
+                         atlas_device_ms=prof["ranges"]["atlas"][1],
+                         kernels={k: v for k, v in prof["kernels"].items() if v})
+        log(f"[8] {name} route, untracked window core at scale: {core_ms:.2f} ms best of 3 "
+            f"({core_ms / win.num_windows * 1e3:.2f} us a window); profiled host {prof['host_ms']:.1f} ms, "
+            f"device busy {prof['device_busy_ms']:.2f} ms; atlas update {prof['ranges']['atlas'][1]:.3f} "
+            f"device ms; by stage (host ms, kernel ms, device span ms): "
+            + ", ".join(f"{k} ({h:.2f}, {d:.2f}, {sp:.2f})" for k, (h, d, sp) in prof["ranges"].items() if h)
+            + "; device launches per block: "
+            + ", ".join(f"{k} {v}" for k, v in out[name]["kernels"].items()))
+    return out
+
+
+def phase8(scale, kernel_run, fleet_recs, dev) -> dict:
+    """Phase 8, run on the card with no error caught."""
+    t8 = time.perf_counter()
+    routes = check_routes(scale, kernel_run, dev)
+    atlas = check_atlas_stream(scale, dev)
+    sync = check_atlas_sync(scale, dev)
+    check_route_fleet(fleet_recs, dev)
+    k6 = check_k6_real_frames(scale, routes, dev)
+    check_fig7(routes, dev)
+    times = route_times(scale, dev)
+    log(f"[8] phase wall time {time.perf_counter() - t8:.1f} s")
+    return dict(routes=routes, atlas=atlas, sync=sync, k6=k6, times=times)
+
+
 def main() -> int:
     import torch
 
@@ -2247,8 +2665,7 @@ def main() -> int:
     from repro_torch.core.events import EventBatch, pad_windows
     from repro_torch.core.pipeline import PipelineConfig, config as C
     from repro_torch.core.pipeline import evaluate_detection, run_recording_scan
-    from repro_torch.core.pipeline.scan import WINDOW_BLOCK
-    from repro_torch.core.pipeline.window_core import _cluster, _condition
+    from repro_torch.core.pipeline.window_core import WINDOW_BLOCK, _cluster, _condition
     from repro_torch.data.synthetic import make_recording
     from repro_torch.kernels import _build, ops
 
@@ -2343,6 +2760,7 @@ def main() -> int:
     cpu = run_main_path(scale, cfg, "cpu")
     cpu_s = time.perf_counter() - t0
     compare_runs(gpu, cpu, "scale")
+    kernel_run = gpu  # the kernel route's tracked scan at scale, for phase 8
     s_gpu = summary(*gpu, cfg)
     log(f"[4] scale recording ({len(scale)} events), float path: cuda {s_gpu}, launches "
         f"{scale_launches}; first cuda run {first:.2f} s, cpu run {cpu_s:.2f} s; integer outputs identical")
@@ -2395,6 +2813,10 @@ def main() -> int:
     shard_chaos = check_shard_chaos(cfg, dev)
     log(f"[7] phase wall time {time.perf_counter() - t7:.1f} s")
 
+    # Phase 8: the frame oracle and the atlas event core against the other
+    # float routes and the CPU, each run's counters set to 0 just before it.
+    p8 = phase8(scale, kernel_run, fleet_recs, dev)
+
     rows = []
     for name, r in kernels.items():
         row = dict(
@@ -2440,6 +2862,15 @@ def main() -> int:
                 launches_on=f"run_recording_scan of the scale recording in {STRIDE_US // 1000} ms stride "
                             f"windows at capacity {STRIDE_CAPACITY} (float, untracked)",
             )
+        if name == "cluster_accum":  # phase 8: one pass of the scale recording per route
+            row["routes_launches"] = {k: r8["launches"]["cluster_accum"]
+                                      for k, r8 in p8["routes"]["runs"].items() if r8["launches"]}
+        if name == "event_unpack":  # phase 8: the event route's ragged streams
+            row["atlas_stream_launches"] = {k: v["event_unpack"] for k, v in p8["atlas"].items()}
+        if name == "window_entropy":  # phase 8: the frame oracle's real frames
+            row["real_frames"] = dict(p8["k6"], timed_on=f"{p8['k6']['launches']} frames of the "
+                                      f"scale recording, one launch a frame")
+            row["max_abs_err"] = max(row["max_abs_err"], p8["k6"]["max_abs_err"])
         if name in stream_rows:  # the same kernel per launch on the ragged stream
             st = stream_rows[name]
             row["stream"] = dict(

@@ -1,17 +1,30 @@
-"""Cluster quality metrics (paper Sec. III-E), event-space route.
+"""Cluster quality metrics (paper Sec. III-E).
 
 The port of ``repro.core.metrics``: for every cluster a 48x48 count patch
 around the centroid gives six statistics (Shannon and Renyi entropy of
 the intensity histogram, differential entropy of the Sobel gradient
-magnitude, local contrast, edge density, event count). The patch and the
-histogram are built straight from the window's events; the frame's
-global-max normalizer comes from per-pixel coincidence counts.
+magnitude, local contrast, edge density, event count). Two routes give
+them, as in the reference:
+
+* the **frame oracle** (:func:`cluster_metrics_frame`) scatters each
+  window into a sensor-sized accumulation image (:func:`accumulate_image`),
+  takes its global maximum as the normalizer and slices the patches out
+  of it: the paper's own data flow, O(sensor area) per window;
+* the **event route** (:func:`cluster_metrics_events`) builds the patch
+  and the histogram straight from the window's events; the normalizer
+  comes from per-pixel coincidence counts.
 
 Every quantity that crosses into :func:`_exact_cluster_metrics` is an
 exact small integer, so the patches, histograms, moments and edge counts
 match the reference exactly; only the order-dependent float reductions
 (``s_g``, ``s_e2``, the entropy sums) and ``log2`` differ in the last
-bits. All functions take a leading window axis.
+bits. Both routes hand that core the same ``(block, K, 48, 48)`` shapes
+in the same :data:`_METRIC_BLOCK`-window blocks, so on one device they
+agree bit for bit. The per-patch functions (:func:`shannon_entropy` ...
+:func:`edge_density`) and the legacy :func:`cluster_metrics` work on a
+normalized frame, as the reference's do; :func:`metric_matrix` and
+:func:`correlation_matrix` give the paper's Fig. 7. All functions take a
+leading window axis (the per-patch ones any leading axes).
 """
 from __future__ import annotations
 
@@ -52,6 +65,59 @@ def window_origin(
     return x0.to(torch.int32), y0.to(torch.int32)
 
 
+def _in_sensor(x: torch.Tensor, y: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    return (x >= 0) & (x < width) & (y >= 0) & (y < height)
+
+
+def _accumulate(x, y, valid, width: int, height: int) -> torch.Tensor:
+    """(..., H, W) per-pixel counts of ``(..., E)`` events; off-sensor
+    events weigh 0 (their clipped index lands nowhere)."""
+    e = x.shape[-1]
+    wt = (valid & _in_sensor(x, y, width, height)).to(torch.float32).reshape(-1, e)
+    flat = torch.clamp(y.to(torch.int64) * width + x, 0, width * height - 1).reshape(-1, e)
+    img = torch.zeros((flat.shape[0], height * width), dtype=torch.float32, device=x.device)
+    return img.scatter_add_(-1, flat, wt).reshape(*x.shape[:-1], height, width)
+
+
+def accumulate_image(batch: EventBatch, width: int = 640, height: int = 480) -> torch.Tensor:
+    """``(..., H, W)`` event-count image of ``(..., E)`` windows (the
+    un-normalized accumulation frame). Events outside the sensor are
+    masked out of the weights, not clipped into a neighbouring pixel."""
+    return _accumulate(batch.x, batch.y, batch.valid, width, height)
+
+
+def reconstruct_frame(batch: EventBatch, width: int = 640, height: int = 480) -> torch.Tensor:
+    """Accumulate each window into an intensity frame normalized to [0, 1]."""
+    img = accumulate_image(batch, width, height)
+    return img / torch.clamp_min(img.amax((-2, -1), keepdim=True), 1.0)
+
+
+def _slice_patches(frame: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, window: int = WINDOW):
+    """``(..., K, window, window)`` slices of ``(..., H, W)`` frames at the
+    ``(..., K)`` top-left corners ``(x0, y0)``, by one gather."""
+    h, w = frame.shape[-2:]
+    lead = frame.shape[:-2]
+    ar = torch.arange(window, device=frame.device)
+    rows = (y0.to(torch.int64)[..., None] + ar) * w  # (..., K, window)
+    idx = rows[..., :, None] + (x0.to(torch.int64)[..., None] + ar)[..., None, :]
+    patches = torch.gather(frame.reshape(*lead, h * w), -1, idx.reshape(*lead, -1))
+    return patches.reshape(*x0.shape, window, window)
+
+
+def extract_window(frame: torch.Tensor, cx, cy, window: int = WINDOW) -> torch.Tensor:
+    """Edge-clamped ``(window, window)`` patches of ``(..., H, W)`` frames
+    centred at ``(cx, cy)``: the centres have the frames' leading axes and
+    then, optionally, one of their own (``(..., K)`` centres give
+    ``(..., K, window, window)``); the geometry is :func:`window_origin`'s."""
+    h, w = frame.shape[-2:]
+    cx = torch.as_tensor(cx, dtype=torch.float32, device=frame.device)
+    cy = torch.as_tensor(cy, dtype=torch.float32, device=frame.device)
+    x0, y0 = window_origin(cx, cy, w, h, window)
+    if x0.dim() == frame.dim() - 2:  # one centre a frame
+        return _slice_patches(frame, x0[..., None], y0[..., None], window)[..., 0, :, :]
+    return _slice_patches(frame, x0, y0, window)
+
+
 def _sobel(patch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """3x3 Sobel cross-correlation over the last two axes, zero padded."""
     h, w = patch.shape[-2:]
@@ -69,6 +135,39 @@ def _sobel(patch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return gx, gy
 
 
+def gradient_magnitude(patch: torch.Tensor) -> torch.Tensor:
+    gx, gy = _sobel(patch)
+    return torch.sqrt(gx * gx + gy * gy + 1e-12)
+
+
+def _diff_entropy_from_g(g: torch.Tensor) -> torch.Tensor:
+    # jnp.var divides by n: no Bessel correction.
+    var = torch.clamp_min(g.var((-2, -1), correction=0), 1e-12)
+    return 0.5 * torch.log2(2.0 * math.pi * math.e * var)
+
+
+def _edge_density_from_g(g: torch.Tensor, threshold: float = EDGE_THRESHOLD) -> torch.Tensor:
+    g = g / torch.clamp_min(g.amax((-2, -1), keepdim=True), 1e-3)
+    return (g > threshold).to(torch.float32).mean((-2, -1))
+
+
+def differential_entropy(patch: torch.Tensor) -> torch.Tensor:
+    """Gaussian-model differential entropy of gradient magnitudes:
+    h = 0.5 * log2(2 pi e sigma^2)."""
+    return _diff_entropy_from_g(gradient_magnitude(patch))
+
+
+def local_contrast(patch: torch.Tensor) -> torch.Tensor:
+    """Standard deviation (over n, as ``jnp.std``) of each patch's pixels."""
+    return patch.std((-2, -1), correction=0)
+
+
+def edge_density(patch: torch.Tensor, threshold: float = EDGE_THRESHOLD) -> torch.Tensor:
+    """Ratio of edge pixels to all pixels (Sobel-magnitude detector, 1e-3
+    normalization floor so flat patches stay edge-free)."""
+    return _edge_density_from_g(gradient_magnitude(patch), threshold)
+
+
 def _shannon_from_hist(p: torch.Tensor) -> torch.Tensor:
     terms = torch.where(p > 0, p * torch.log2(torch.clamp_min(p, 1e-12)), 0.0)
     return -terms.sum(-1)
@@ -76,6 +175,31 @@ def _shannon_from_hist(p: torch.Tensor) -> torch.Tensor:
 
 def _renyi_from_hist(p: torch.Tensor) -> torch.Tensor:
     return -torch.log2(torch.clamp_min((p * p).sum(-1), 1e-12))
+
+
+def _histogram_counts(patch: torch.Tensor, bins: int = HIST_BINS) -> torch.Tensor:
+    """``(..., bins)`` integer intensity-histogram counts of ``(..., h, w)``
+    patches in [0, 1], as float32 (exact: sums of ones)."""
+    flat = patch.reshape(*patch.shape[:-2], -1)
+    idx = torch.clamp((flat * bins).to(torch.int32), 0, bins - 1).to(torch.int64)
+    counts = torch.zeros((*flat.shape[:-1], bins), dtype=torch.float32, device=patch.device)
+    return counts.scatter_add_(-1, idx, torch.ones_like(flat))
+
+
+def _histogram(patch: torch.Tensor, bins: int = HIST_BINS) -> torch.Tensor:
+    """Normalized intensity histogram, ``(..., bins)``."""
+    counts = _histogram_counts(patch, bins)
+    return counts / torch.clamp_min(counts.sum(-1, keepdim=True), 1.0)
+
+
+def shannon_entropy(patch: torch.Tensor, bins: int = HIST_BINS) -> torch.Tensor:
+    """H = -sum p_i log2 p_i over the intensity histogram of each patch."""
+    return _shannon_from_hist(_histogram(patch, bins))
+
+
+def renyi_entropy(patch: torch.Tensor, bins: int = HIST_BINS) -> torch.Tensor:
+    """H2 = -log2 sum p_i^2 (collision entropy) of each patch."""
+    return _renyi_from_hist(_histogram(patch, bins))
 
 
 def _exact_cluster_metrics(
@@ -225,7 +349,13 @@ def cluster_metrics_events(
     """Frame-free metrics over ``(W, E)`` windows and ``(W, K)`` clusters:
     normalizer from coincidence counts, histogram from leaders, moments
     from events, count patches accumulated from events."""
-    c, leader, w, norm = event_normalizer(batch, width, height)
+    return _event_metrics(batch, clusters, *event_normalizer(batch, width, height), width, height)
+
+
+def _event_metrics(batch, clusters, c, leader, w, norm, width: int, height: int):
+    """:func:`cluster_metrics_events` from a precomputed
+    :func:`event_normalizer` (the atlas event core computes it once for
+    the metrics and the atlas)."""
     x0, y0 = window_origin(clusters.centroid_x, clusters.centroid_y, width, height)
 
     def block(x, y, w, c, leader, norm, x0, y0, count, valid):
@@ -239,3 +369,61 @@ def cluster_metrics_events(
         block, batch.x, batch.y, w, c, leader, norm, x0, y0,
         clusters.count, clusters.valid,
     )
+
+
+def cluster_metrics_frame(
+    batch: EventBatch,
+    clusters: Clusters,
+    width: int = 640,
+    height: int = 480,
+) -> dict[str, torch.Tensor]:
+    """The frame oracle over ``(W, E)`` windows and ``(W, K)`` clusters:
+    per block of :data:`_METRIC_BLOCK` windows, a sensor-sized count image
+    each, its global maximum as the normalizer, each cluster's count patch
+    sliced out of it and the histogram counted on the patch; then the
+    shared exact core, with the event route's shapes."""
+    x0, y0 = window_origin(clusters.centroid_x, clusters.centroid_y, width, height)
+
+    def block(x, y, v, x0, y0, count, valid):
+        img = _accumulate(x, y, v, width, height)  # (b, H, W): 1.2 MB a window
+        norm = torch.clamp_min(img.amax((-2, -1)), 1.0)
+        cnt = _slice_patches(img, x0, y0)
+        hist = _histogram_counts(cnt / norm[:, None, None, None])
+        return _exact_cluster_metrics(cnt, hist, norm[..., None], count, valid)
+
+    return _blocked(
+        block, batch.x, batch.y, batch.valid, x0, y0, clusters.count, clusters.valid,
+    )
+
+
+def cluster_metrics(frame: torch.Tensor, clusters: Clusters) -> dict[str, torch.Tensor]:
+    """The legacy metrics on pre-normalized ``(B, H, W)`` frames for
+    ``(B, K)`` clusters: float statistics of each sliced patch, as the
+    reference's; they agree with the exact core to float tolerance, not
+    bit for bit. Invalid slots get zeros."""
+    patch = extract_window(frame, clusters.centroid_x, clusters.centroid_y)
+    p = _histogram(patch)
+    g = gradient_magnitude(patch)
+    m = {
+        "shannon_entropy": _shannon_from_hist(p),
+        "renyi_entropy": _renyi_from_hist(p),
+        "differential_entropy": _diff_entropy_from_g(g),
+        "local_contrast": local_contrast(patch),
+        "edge_density": _edge_density_from_g(g),
+        "event_count": clusters.count.to(torch.float32),
+    }
+    return {k: torch.where(clusters.valid, v, 0.0) for k, v in m.items()}
+
+
+def metric_matrix(metrics: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Stack the metric dict into ``(..., 6)`` in :data:`METRIC_NAMES` order."""
+    return torch.stack([metrics[name] for name in METRIC_NAMES], dim=-1)
+
+
+def correlation_matrix(samples: torch.Tensor) -> torch.Tensor:
+    """Pearson correlation across the columns of ``(N, M)`` samples
+    (paper Fig. 7)."""
+    x = samples - samples.mean(0, keepdim=True)
+    cov = (x.T @ x) / max(samples.shape[0] - 1, 1)
+    std = torch.sqrt(torch.clamp_min(torch.diagonal(cov), 1e-12))
+    return cov / (std[:, None] * std[None, :])

@@ -6,6 +6,9 @@
 * ``scan``        — the step core with a carry (:func:`make_core`),
   :func:`run_recording_scan`, the whole-recording driver, and
   :func:`run_many_scan`, one core call over a batch of recordings.
+* ``event_core``  — the atlas event core (:func:`make_event_core`), the
+  float event route's step core, which writes the persistent
+  window-tagged atlas.
 * ``stream``      — :class:`StreamingPipeline`, the live-feed driver.
 * ``fleet``       — :class:`FleetPipeline`, N sensors through one step per
   round, over the dense or the ragged ingest wire.
@@ -17,6 +20,7 @@ from repro_torch.core.pipeline.config import (  # noqa: F401
     PipelineConfig,
     _histogram_fn,
     _metrics_fn,
+    atlas_shape,
     config_from_dict,
 )
 from repro_torch.core.pipeline.window_core import (  # noqa: F401
@@ -30,12 +34,12 @@ from repro_torch.core.pipeline.window_core import (  # noqa: F401
 )
 from repro_torch.core.pipeline.scan import (  # noqa: F401
     ScanResult,
-    atlas_shape,
     make_atlas,
     make_core,
     run_many_scan,
     run_recording_scan,
 )
+from repro_torch.core.pipeline.event_core import make_event_core  # noqa: F401
 from repro_torch.core.pipeline.stream import (  # noqa: F401
     StreamingPipeline,
     StreamState,

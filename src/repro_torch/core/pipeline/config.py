@@ -7,12 +7,17 @@ The same fields and defaults as ``repro.core.pipeline.config``:
   (one launch of the ``cluster_accum`` kernel on the card), else the
   tensor scatter :func:`cell_histogram` and ``clusters_from_histogram``;
   :func:`_histogram_fn` gives the cell rows of either route;
-* ``metrics_impl``: ``"kernel"`` routes the metrics stage through
+* ``metrics_impl``: ``"event"`` (the default) routes the metrics stage
+  through :func:`cluster_metrics_events`, and the scan, stream and fleet
+  drivers through the atlas event core
+  (:mod:`repro_torch.core.pipeline.event_core`), which also writes the
+  persistent window-tagged atlas; ``"frame"`` through the frame oracle
+  :func:`cluster_metrics_frame` (a sensor-sized image per window, equal
+  to ``"event"`` bit for bit on one device); ``"kernel"`` through
   ``ops.patch_metrics`` (one launch of its CUDA kernel on the card);
-  ``"event"`` through :func:`cluster_metrics_events`; ``"frame"`` (the
-  frame oracle) is not ported yet;
 * ``scan_chunk`` is the reference's scheduling knob for its atlas event
-  core, which this port does not have yet; results never depend on it;
+  core; the port's event core runs whole window blocks and accepts it,
+  and no result depends on it;
 * ``numerics``: ``"float"`` (default) or ``"fixed"``, the integer
   datapath of :mod:`repro_torch.core.fixed_point`. Under ``"fixed"``,
   ``metrics_impl`` selects ``"event"``/``"staged"`` (the staged integer
@@ -42,8 +47,8 @@ class PipelineConfig:
     hot_pixel_max: int = 12
     merge_neighbors: bool = False
     use_kernels: bool = False  # route quantize+accumulate through the kernel
-    metrics_impl: str = "event"  # "event" | "kernel"; "staged" | "megakernel" when fixed
-    scan_chunk: int = 8  # scheduling only; unused by the straight core
+    metrics_impl: str = "event"  # "event" | "frame" | "kernel"; "staged" | "megakernel" when fixed
+    scan_chunk: int = 8  # the reference's scheduling knob; changes no result here
     numerics: str = "float"  # "float" | "fixed"
 
 
@@ -56,6 +61,13 @@ def config_from_dict(d: dict[str, Any]) -> PipelineConfig:
     d["tracker"] = TrackerConfig(**d["tracker"])
     d["roi"] = tuple(d["roi"])
     return PipelineConfig(**d)
+
+
+def atlas_shape(config: PipelineConfig, capacity: int | None = None) -> tuple[int, int]:
+    """Shape of the persistent tagged event surface for this config (the
+    reference's, so carries convert across the two packages)."""
+    cap = config.batcher.capacity if capacity is None else capacity
+    return (config.grid.height + 1, max(config.grid.width, cap))
 
 
 def check_supported(config: PipelineConfig) -> None:
@@ -93,7 +105,5 @@ def _metrics_fn(
 
         return lambda batch, clusters: kops.patch_metrics(batch, clusters, width=w, height=h)
     if impl == "frame":
-        raise NotImplementedError(
-            "metrics_impl='frame' is not ported yet (ROADMAP: the frame oracle)"
-        )
+        return lambda batch, clusters: M.cluster_metrics_frame(batch, clusters, w, h)
     raise ValueError(f"unknown metrics_impl: {impl!r}")

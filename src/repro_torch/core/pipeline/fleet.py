@@ -17,7 +17,10 @@ loop over the window axis updates every sensor together.
   carry is re-selected at its last real window (``n_valid - 1``), so the
   padding coast never reaches the next feed.
 * **Tags.** Tags advance per sensor by its real windows; epoch rollover
-  (atlas slice zeroed, tag reset) is decided per sensor on the host.
+  (atlas slice zeroed, tag reset) is decided per sensor on the host. The
+  round's first tag per sensor ships with ``n_valid`` in the staging
+  set's meta rows, and on the event route the atlas event core writes
+  each sensor's atlas slice with it.
 * **Slot pool.** ``n_sensors`` is the pool's capacity; an idle slot is
   fed ``None``. :meth:`FleetPipeline.reset_slots` zeroes a slot for reuse
   (an all-zero slot carry is the fresh-stream state),
@@ -66,8 +69,8 @@ from repro_torch.core.events import (
     unpack_wire,
     wire_pad,
 )
-from repro_torch.core.pipeline.config import PipelineConfig
-from repro_torch.core.pipeline.scan import ScanResult, atlas_shape, make_core
+from repro_torch.core.pipeline.config import PipelineConfig, atlas_shape
+from repro_torch.core.pipeline.scan import ScanResult, make_core
 from repro_torch.core.pipeline.stream import empty_scan_result, tag_limit
 from repro_torch.core.tracking import TrackState, init_tracks, tracks_from_numpy
 from repro_torch.distributed.sharding import grow_fleet_carry, shrink_fleet_carry
@@ -129,17 +132,20 @@ def make_fleet_step(config: PipelineConfig, with_tracking: bool = True):
     """The fleet step: the step core over ``(S, W, E)`` windows.
 
         (packed (4,S,W,cap), valid (S,W,cap), state (S,T), atlas,
-         n_valid (S,) int on the device) ->
+         meta (2,S) int32 on the device: tag0 / n_valid) ->
             (final (S,T), clusters (S,W,K), mets (S,W,K), states (S,W,T),
              atlas)
 
+    Sensor ``s``'s windows carry the atlas tags ``tag0[s] + w`` (the
+    event core writes them; the other cores leave the atlas as it is).
     ``final`` is each sensor's state after its last real window
     (``n_valid - 1``), or its previous carry when it closed none."""
     core = make_core(config, with_tracking)
 
-    def step(packed, valid, state, atlas, n_valid):
+    def step(packed, valid, state, atlas, meta):
+        tag0, n_valid = meta[0], meta[1]
         batch = EventBatch(packed[0], packed[1], packed[2], packed[3], valid)
-        _, clusters, mets, states, atlas = core(batch, state, atlas, 0)
+        _, clusters, mets, states, atlas = core(batch, state, atlas, tag0)
         if states is None:
             return state, clusters, mets, None, atlas
         s_ix = torch.arange(n_valid.shape[0], device=n_valid.device)
@@ -773,7 +779,7 @@ class FleetPipeline:
         if meta is staging.meta_t:  # no copy on the CPU; the set is refilled later
             meta = meta.clone()
         final_tracks, clusters, mets, states, atlas = self._step(
-            packed_in, valid_in, st.tracks, atlas_in, meta[1],
+            packed_in, valid_in, st.tracks, atlas_in, meta,
         )
         event = None
         if dev.type == "cuda":

@@ -7,18 +7,20 @@ core built by :func:`make_core`:
 
 over ``(W, E)`` windows of one sensor or ``(S, W, E)`` windows of a
 fleet: conditioning, clustering and metrics run over the flattened
-windows in blocks of :data:`WINDOW_BLOCK` on the device, then the
+windows in blocks of ``window_core.WINDOW_BLOCK`` on the device, then the
 tracker, the one stage with a carry, runs from ``state`` as a loop over
-the window axis, every sensor at once. The reference's straight core
-(``use_kernels`` / ``metrics_impl="kernel"``) and its fixed-point core
-(``numerics="fixed"``, staged or megakernel) are ported; the atlas event
-core is not yet, so the persistent atlas rides the carry untouched, as
-on the reference's straight route, in the reference's shape, so carries
-convert across the two packages. :func:`run_recording_scan` is one core
-call over a whole recording with a fresh carry; :func:`run_many_scan` one
+the window axis, every sensor at once. The float event route
+(``metrics_impl="event"``, the default) is the atlas event core
+(``event_core.py``): it also writes the persistent window-tagged atlas,
+equal to the reference's to the bit, from the window tags ``tag0 + w``.
+The straight core (``metrics_impl="frame"`` or ``"kernel"``) and the
+fixed-point core (``numerics="fixed"``) carry the atlas untouched, as the
+reference's do. The atlas has the reference's shape, so carries convert
+across the two packages. :func:`run_recording_scan` is one core call
+over a whole recording with a fresh carry; :func:`run_many_scan` one
 core call over a batch of recordings, their windows stacked along a
-leading recording axis; the streaming and fleet drivers call the core
-feed after feed.
+leading recording axis, each with its own atlas; the streaming and fleet
+drivers call the core feed after feed.
 """
 from __future__ import annotations
 
@@ -35,19 +37,21 @@ from repro_torch.core.pipeline.config import (
     PipelineConfig,
     _histogram_fn,
     _metrics_fn,
+    atlas_shape,
     check_supported,
 )
-from repro_torch.core.pipeline.window_core import WindowResult, _fixed_window_core, _window_core
-from repro_torch.core.tracking import TrackState, init_tracks, track_recording
+from repro_torch.core.pipeline.event_core import make_event_core
+from repro_torch.core.pipeline.window_core import (
+    WindowResult,
+    _fixed_window_core,
+    _flat_blocks,
+    _gather_and_track,
+    _window_core,
+)
+from repro_torch.core.tracking import TrackState, init_tracks
 
 if TYPE_CHECKING:
     from repro_torch.data.synthetic import Recording
-
-# Windows per block through the stateless stages: bounds the device
-# memory of one block (about 4 MB of event planes per 1024 windows)
-# while keeping a launch per kernel per block.
-WINDOW_BLOCK = 4096
-
 
 @dataclasses.dataclass
 class ScanResult:
@@ -81,13 +85,6 @@ class ScanResult:
         ]
 
 
-def atlas_shape(config: PipelineConfig, capacity: int | None = None) -> tuple[int, int]:
-    """Shape of the persistent tagged event surface for this config (the
-    reference's, so carries convert across the two packages)."""
-    cap = config.batcher.capacity if capacity is None else capacity
-    return (config.grid.height + 1, max(config.grid.width, cap))
-
-
 def make_atlas(
     config: PipelineConfig,
     capacity: int | None = None,
@@ -105,40 +102,28 @@ def make_core(config: PipelineConfig, with_tracking: bool = True):
             (final, clusters, mets, states, atlas)
 
     ``batch`` leaves are ``(W, E)`` or ``(S, W, E)``, ``state`` leaves
-    ``(T,)`` or ``(S, T)``. Returns the tracker state after the last
-    window, ``(..., W, K)`` clusters and metrics, the ``(..., W, T)``
-    state after each window (``None`` without tracking; ``final`` is then
-    ``state``) and the atlas, untouched (``tag0`` is only for the atlas
-    event core, not ported yet)."""
+    ``(T,)`` or ``(S, T)``, ``atlas`` ``(H+1, max(width, E))`` or ``(S,
+    H+1, max(width, E))``. Returns the tracker state after the last window,
+    ``(..., W, K)`` clusters and metrics, the ``(..., W, T)`` state after
+    each window (``None`` without tracking; ``final`` is then ``state``)
+    and the atlas. ``numerics="float", metrics_impl="event"`` is the atlas
+    event core (:func:`~repro_torch.core.pipeline.event_core.make_event_core`),
+    which writes the atlas from the window tags ``tag0 + w``; the frame
+    and kernel routes and the fixed datapath run the straight core, which
+    returns the atlas untouched, as the reference's do."""
     check_supported(config)
     if config.numerics == "fixed":
         window_fn = lambda batch: _fixed_window_core(config, batch)  # noqa: E731
+    elif config.metrics_impl == "event":
+        return make_event_core(config, with_tracking)
     else:
         hist_fn, metrics_fn = _histogram_fn(config), _metrics_fn(config)
         window_fn = lambda batch: _window_core(config, hist_fn, metrics_fn, batch)  # noqa: E731
 
     def core(batch: EventBatch, state: TrackState, atlas: torch.Tensor, tag0=0):
-        del tag0
-        lead = batch.x.shape[:-1]  # (..., W)
-        e = batch.x.shape[-1]
-        flat = EventBatch(*(a.reshape(-1, e) for a in batch))
-        n = flat.x.shape[0]
-        parts = [
-            window_fn(EventBatch(*(a[lo:lo + WINDOW_BLOCK] for a in flat)))
-            for lo in range(0, max(n, 1), WINDOW_BLOCK)
-        ]
-        unflat = lambda a: a.reshape(*lead, *a.shape[1:])  # noqa: E731
-        clusters = Clusters(*(unflat(torch.cat(f)) for f in zip(*(p[0] for p in parts))))
-        mets = {k: unflat(torch.cat([p[1][k] for p in parts])) for k in parts[0][1]}
-        if not with_tracking:
-            return state, clusters, mets, None, atlas
-        # The tracker loops over a leading window axis, every sensor at once.
-        axis = len(lead) - 1
-        final, states = track_recording(
-            Clusters(*(a.movedim(axis, 0) for a in clusters)),
-            mets["shannon_entropy"].movedim(axis, 0), config.tracker, state,
-        )
-        return final, clusters, mets, TrackState(*(a.movedim(0, axis) for a in states)), atlas
+        del tag0  # only the atlas event core tags windows
+        parts = [window_fn(block) for _, block in _flat_blocks(batch)]
+        return (*_gather_and_track(config, with_tracking, batch.x.shape[:-1], parts, state), atlas)
 
     return core
 
@@ -203,8 +188,10 @@ def _many_scan_raw(
     ))
     fresh = init_tracks(config.tracker, dev)
     state = TrackState(*(a.new_zeros((len(recordings),) + tuple(a.shape)) for a in fresh))
-    final, clusters, mets, states, _ = make_core(config, with_tracking)(
-        stacked, state, make_atlas(config, windowed[0].capacity, dev), 0)
+    # One fresh atlas a recording, along the leading recording axis.
+    atlas = torch.zeros((len(recordings),) + atlas_shape(config, windowed[0].capacity),
+                        dtype=torch.int32, device=dev)
+    final, clusters, mets, states, _ = make_core(config, with_tracking)(stacked, state, atlas, 0)
     return windowed, (final, clusters, mets, states)
 
 

@@ -11,10 +11,13 @@ recording for any chunking, on one device to the bit.
 The carry (:class:`StreamState`) holds what the next feed needs: the
 batcher remainder (host events of the still-open trailing window), the
 stream index of its first event, the next atlas tag (epoch-local), the
-atlas and the tracker state. ``wire="ragged"`` packs each feed's windows
-into the compressed ingest wire on the host and decodes it on the
-device (the ``event_unpack`` kernel under ``use_kernels``), to the same
-planes as ``wire="dense"``.
+atlas and the tracker state. On the float event route the atlas event
+core writes the atlas feed after feed, so :func:`stream_state_to_numpy`
+and :func:`stream_state_from_numpy` carry the reference's atlas exactly;
+the other routes leave it zero, as the reference's do.
+``wire="ragged"`` packs each feed's windows into the compressed ingest
+wire on the host and decodes it on the device (the ``event_unpack``
+kernel under ``use_kernels``), to the same planes as ``wire="dense"``.
 """
 from __future__ import annotations
 

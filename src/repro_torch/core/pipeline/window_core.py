@@ -15,7 +15,9 @@ megakernel runs inside one range, ``"fixed window core"``.
 :func:`run_recording` is the loop driver: the reference's dual-threshold
 windows one at a time, each through the window core as a ``(1, E)``
 block (so on the kernel routes each kernel launches once per window),
-then one tracker step, with a host copy of the metrics per window. The
+then one tracker step, with a host copy of the metrics per window. Its
+metrics stage is the configured route's (``_metrics_fn``: event, frame or
+kernel); like the reference's loop driver it has no atlas. The
 per-window stage and the tracker step are memoized per config
 (:func:`make_process_window`, :func:`_tracker_fn`), as in the reference.
 It is the baseline the scan and stream drivers are held to, window for
@@ -46,10 +48,21 @@ from repro_torch.core.pipeline.config import (
     _metrics_fn,
     check_supported,
 )
-from repro_torch.core.tracking import TrackerConfig, TrackState, init_tracks, tracker_step
+from repro_torch.core.tracking import (
+    TrackerConfig,
+    TrackState,
+    init_tracks,
+    track_recording,
+    tracker_step,
+)
 
 if TYPE_CHECKING:
     from repro_torch.data.synthetic import Recording
+
+# Windows per block through the stateless stages: bounds the device
+# memory of one block (about 4 MB of event planes per 1024 windows)
+# while keeping a launch per kernel per block.
+WINDOW_BLOCK = 4096
 
 
 def _condition(config: PipelineConfig, batch: EventBatch) -> EventBatch:
@@ -104,6 +117,34 @@ def _fixed_window_core(
     else:
         fc, mets = fixed_window_stage(config, batch)
     return fc.to_clusters(), mets
+
+
+def _flat_blocks(batch: EventBatch):
+    """The ``(..., W, E)`` windows flattened to ``(n, E)`` and cut into
+    :data:`WINDOW_BLOCK`-window blocks: ``(lo, block)`` pairs (one empty
+    block when there is no window)."""
+    e = batch.x.shape[-1]
+    flat = EventBatch(*(a.reshape(-1, e) for a in batch))
+    n = flat.x.shape[0]
+    return [(lo, EventBatch(*(a[lo:lo + WINDOW_BLOCK] for a in flat)))
+            for lo in range(0, max(n, 1), WINDOW_BLOCK)]
+
+
+def _gather_and_track(config, with_tracking, lead, parts, state):
+    """Concatenate the blocks' ``(clusters, mets)`` back to ``(..., W, K)``
+    and run the tracker from ``state`` over the window axis, every sensor
+    at once. Returns ``(final, clusters, mets, states)``."""
+    unflat = lambda a: a.reshape(*lead, *a.shape[1:])  # noqa: E731
+    clusters = Clusters(*(unflat(torch.cat(f)) for f in zip(*(p[0] for p in parts))))
+    mets = {k: unflat(torch.cat([p[1][k] for p in parts])) for k in parts[0][1]}
+    if not with_tracking:
+        return state, clusters, mets, None
+    axis = len(lead) - 1
+    final, states = track_recording(
+        Clusters(*(a.movedim(axis, 0) for a in clusters)),
+        mets["shannon_entropy"].movedim(axis, 0), config.tracker, state,
+    )
+    return final, clusters, mets, TrackState(*(a.movedim(0, axis) for a in states))
 
 
 def _one_window(window_fn: Callable[[EventBatch], tuple]) -> Callable[[EventBatch], tuple]:

@@ -27,7 +27,11 @@ the bit; window_entropy to rtol 1e-5 (atol 1e-7 for exact zeros): its
 float32 sums run in another order than the plain version's, and log2f is
 not torch's log2. The fleet's asynchronous rounds equal its synchronous
 ones, and both each sensor's scan, to the bit; so does the stream over
-the ragged wire equal its scan. The adversarial inputs
+the ragged wire equal its scan. The frame oracle equals the event route
+on the card bit for bit; the atlas event core writes the CPU's atlas
+across forced tag rollovers, and its atlas update synchronizes nothing
+with the host; ``window_entropy`` on real reconstructed frames agrees
+with the frame oracle's entropies and contrast. The adversarial inputs
 come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
 are shared with ``test_torch_kernels.py``.
 """
@@ -290,7 +294,7 @@ def test_float_stages_one_launch_per_block(cuda_dev):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.pipeline import FleetPipeline, PipelineConfig, run_recording_scan
-    from repro_torch.core.pipeline import scan as S
+    from repro_torch.core.pipeline import window_core as S
     from repro_torch.data.synthetic import make_recording
 
     cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
@@ -844,3 +848,134 @@ def test_exchange_push_leaves_the_device_busy(cuda_dev, path):
     assert busy, "pump or the exchange push synchronized with the device"
     for p in cs.exchange.view().values():
         assert np.isfinite(p).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["plain", "kernels"])
+def test_frame_route_equals_event_route_on_card(cuda_dev, use_kernels):
+    """The frame oracle (a sensor-sized image a window, its patches sliced
+    out) equals the event route on the card bit for bit, every metric,
+    per-window track and the final carry, on the quickstart recording."""
+    from repro_torch.core.pipeline import PipelineConfig, run_recording_scan
+    from repro_torch.data.synthetic import make_recording
+
+    rec = make_recording(seed=7, duration_s=2.0, n_rsos=2)
+    ops.reset_launches()
+    frame = run_recording_scan(rec, PipelineConfig(use_kernels=use_kernels, metrics_impl="frame"),
+                               device=cuda_dev)
+    assert (ops.LAUNCHES["cluster_accum"] > 0) == use_kernels and ops.LAUNCHES["patch_metrics"] == 0
+    event = run_recording_scan(rec, PipelineConfig(use_kernels=use_kernels), device=cuda_dev)
+    assert frame.num_windows == event.num_windows == 100
+    for f in frame.clusters._fields:
+        assert torch.equal(getattr(frame.clusters, f), getattr(event.clusters, f)), f
+    for m in frame.metrics:
+        assert torch.equal(frame.metrics[m], event.metrics[m]), m
+    for f in frame.tracks._fields:
+        assert torch.equal(getattr(frame.tracks, f), getattr(event.tracks, f)), f
+        assert torch.equal(getattr(frame.final_tracks, f), getattr(event.final_tracks, f)), f
+
+
+@pytest.mark.cuda
+def test_event_core_atlas_on_card_equals_cpu_across_rollover(cuda_dev):
+    """The atlas event core on the card: a ragged stream in 20 ms chunks
+    with a forced rollover (``_tag_limit = 4``) writes the CPU stream's
+    atlas after every feed; the ``event_unpack`` and ``cluster_accum``
+    kernels ran; a tracked core call warns of no host synchronization
+    under ``set_sync_debug_mode("warn")``, and the atlas update alone runs
+    under ``"error"``."""
+    from repro_torch.core.events import pad_windows
+    import warnings
+
+    from repro_torch.core.pipeline import PipelineConfig, StreamingPipeline, make_atlas, make_core
+    from repro_torch.core.metrics import event_normalizer
+    from repro_torch.core.pipeline.event_core import _write_atlas
+    from repro_torch.core.pipeline.window_core import _condition
+    from repro_torch.core.tracking import init_tracks
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.data.synthetic import make_recording
+
+    cfg = PipelineConfig(use_kernels=True)
+    rec = make_recording(seed=11, duration_s=0.6, n_rsos=4, noise_rate_hz=20_000)
+    gpu = StreamingPipeline(cfg, wire="ragged", device=cuda_dev)
+    cpu = StreamingPipeline(cfg, wire="ragged", device="cpu")
+    gpu._tag_limit = cpu._tag_limit = 4
+    ops.reset_launches()
+    rolled = 0
+    for c in iter_chunks(rec, 20_000):
+        before = gpu.state.next_tag
+        gpu.feed(*c)
+        cpu.feed(*c)
+        rolled += gpu.state.next_tag < before
+        assert gpu.state.next_tag == cpu.state.next_tag
+        assert torch.equal(gpu.state.atlas.cpu(), cpu.state.atlas)
+    gpu.flush()
+    cpu.flush()
+    assert torch.equal(gpu.state.atlas.cpu(), cpu.state.atlas) and rolled > 2
+    assert ops.LAUNCHES["event_unpack"] > 0 and ops.LAUNCHES["cluster_accum"] > 0
+    win = pad_windows(rec.x, rec.y, rec.t, rec.p, cfg.batcher, cuda_dev)
+    core = make_core(cfg)
+    tracks = init_tracks(cfg.tracker, cuda_dev)
+    core(win.batch, tracks, make_atlas(cfg, device=cuda_dev), 0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            core(win.batch, tracks, make_atlas(cfg, device=cuda_dev), 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
+    assert not syncs, syncs[:3]
+    g = cfg.grid
+    batch = _condition(cfg, win.batch)
+    c, leader, _, _ = event_normalizer(batch, g.width, g.height)
+    atlas = make_atlas(cfg, device=cuda_dev)
+    ix = torch.arange(batch.x.shape[0], device=cuda_dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _write_atlas(atlas.view(-1), batch, c, leader, ix, batch.x.shape[0], 0,
+                     max(batch.x.shape[-1].bit_length(), 1), atlas.numel(), atlas.shape[-1],
+                     g.height)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int((atlas != 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_window_entropy_against_frame_oracle_on_real_frames(cuda_dev):
+    """``window_entropy`` on reconstructed frames of real windows, at the
+    frame route's valid clusters with rounded centres: equal to its plain
+    version under rtol 1e-5 (atol 1e-7), and its Shannon and Renyi entropy
+    to ``cluster_metrics_frame``'s, its contrast to ``local_contrast`` of
+    the same patch, within rtol = atol = 1e-5."""
+    from repro_torch.core.events import EventBatch, pad_windows
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.core.pipeline.window_core import _cluster, _condition
+    from repro_torch.core.pipeline.config import _histogram_fn
+    from repro_torch.data.synthetic import make_recording
+
+    cfg = PipelineConfig(use_kernels=True, metrics_impl="frame")
+    rec = make_recording(seed=11, duration_s=0.5, n_rsos=4, noise_rate_hz=20_000)
+    win = pad_windows(rec.x, rec.y, rec.t, rec.p, cfg.batcher, cuda_dev)
+    batch = _condition(cfg, EventBatch(*(a[:16] for a in win.batch)))
+    cl = _cluster(cfg, _histogram_fn(cfg), batch)
+    mets = TM.cluster_metrics_frame(batch, cl)
+    frames = TM.reconstruct_frame(batch)
+    checked = 0
+    for w in range(frames.shape[0]):
+        sel = cl.valid[w]
+        if not bool(sel.any()):
+            continue
+        cx = torch.round(cl.centroid_x[w][sel]).to(torch.int32).contiguous()
+        cy = torch.round(cl.centroid_y[w][sel]).to(torch.int32).contiguous()
+        f = frames[w].contiguous()
+        got = ops.window_entropy(f, cx, cy)
+        torch.testing.assert_close(got, ref.window_entropy_ref(f, cx, cy), rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(got[0], mets["shannon_entropy"][w][sel], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got[1], mets["renyi_entropy"][w][sel], rtol=RTOL, atol=ATOL)
+        patches = TM.extract_window(f, cl.centroid_x[w][sel], cl.centroid_y[w][sel])
+        torch.testing.assert_close(got[2], TM.local_contrast(patches), rtol=RTOL, atol=ATOL)
+        checked += int(sel.sum())
+    assert checked > 20

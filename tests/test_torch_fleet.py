@@ -7,7 +7,8 @@ pool (``grow``, ``shrink``, ``reset_slots``, ``flush_slots``, the
 ``final`` mask, atomic rejection, export and import) as
 ``tests/test_fleet.py`` and ``tests/test_carry_migration.py`` pin it.
 Against the JAX package: a slot exported from the JAX fleet mid-stream
-resumes in the port's fleet with the reference's outputs, and the port's
+resumes in the port's fleet with the reference's outputs and, at the
+end, the reference's atlas exactly, and the port's
 fleet under the kernel config matches the reference's
 ``run_recording_scan`` under that config (tolerances of
 ``tests/test_torch_pipeline.py``).
@@ -385,6 +386,8 @@ def test_reference_slot_carry_resumes_in_the_port_fleet():
     jb = ja.export_slot(1)
     assert (back["events_consumed"], back["next_tag"], back["last_t"]) == (
         jb.cursor.events_consumed, jb.cursor.next_tag, jb.cursor.last_t)
+    np.testing.assert_array_equal(back["atlas"], np.asarray(jb.atlas))  # the atlas event core
+    assert np.count_nonzero(back["atlas"]) > 0
 
 
 def test_fleet_kernel_config_matches_reference_scan():

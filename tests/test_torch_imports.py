@@ -40,7 +40,8 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.serve", "repro_torch.serve.batcher", "repro_torch.serve.sessions",
               "repro_torch.serve.faults", "repro_torch.serve.service",
               "repro_torch.distributed.compression", "repro_torch.serve.chaos",
-              "repro_torch.serve.constellation", "repro_torch.serve.chaos_shards"):
+              "repro_torch.serve.constellation", "repro_torch.serve.chaos_shards",
+              "repro_torch.core.pipeline.event_core", "repro_torch.core.metrics"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",

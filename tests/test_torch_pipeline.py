@@ -107,7 +107,7 @@ def test_config_from_dict_roundtrip():
 
 @pytest.mark.parametrize(
     "kw,err",
-    [(dict(metrics_impl="frame"), NotImplementedError),
+    [(dict(numerics="fixed", metrics_impl="frame"), ValueError),
      (dict(numerics="fp8"), ValueError),
      (dict(numerics="fixed", use_kernels=True), ValueError),
      (dict(metrics_impl="nope"), ValueError)],

@@ -485,6 +485,19 @@ def test_session_migrates_across_packages(direction):
     assert src.session(sid).queued_events > 0  # the export carries a queue
     before = list(parts.get(sid, []))
     exp = src.export_session(sid)
+    # A twin session in the other package, driven alike, exports the same
+    # carry: the atlas (written by the atlas event core) exactly.
+    t2, j2 = _both(tiers=(2,), admission=AdmissionConfig(**LAZY))
+    twin = t2 if src is j else j2
+    tsid = twin.attach("mover")
+    for i, c in enumerate(chunks[:cut]):
+        twin.feed(tsid, *c)
+        if i % 3 == 1:
+            twin.pump(force=True)
+    twin_exp = twin.export_session(tsid)
+    assert twin_exp.carry.cursor.next_tag == exp.carry.cursor.next_tag > 0
+    np.testing.assert_array_equal(np.asarray(twin_exp.carry.atlas), np.asarray(exp.carry.atlas))
+    assert np.count_nonzero(np.asarray(exp.carry.atlas)) > 0
     if direction == "reference_to_port":
         exp = session_export_from_numpy(_numpy_export(exp))
     else:
