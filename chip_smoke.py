@@ -102,7 +102,25 @@ Phases (any failure exits non-zero; no error is caught):
    plain version and the frame oracle; (e) Fig. 7 (``metric_matrix``,
    ``correlation_matrix``) on the card against the CPU run, the 6x6
    matrix printed; (f) each route's untracked window core at scale (best
-   of 3), its profile and the atlas update's device ms.
+   of 3), its profile and the atlas update's device ms;
+9. the LM serving path at Llama-3.2-1B's full width (``examples/torch_serve_lm.py``
+   -> ``launch/serve.py`` -> ``serve/lm.py:ServingEngine`` ->
+   ``models/transformer.py:prefill`` / ``decode_step``; no TPU kernel lies
+   on it, so the path is plain PyTorch): (a) random weights from
+   ``torch.Generator`` seed 0 on the card, served as a bf16 copy, 24
+   requests of 16-64 prompt tokens and 16 new ones in batches of 8: every
+   answer 16 tokens, each batch's prefill and decode steps under CUDA
+   events beside their bounds, tokens/s, mean batch latency, peak memory,
+   and the host synchronizations of a decode step and of a whole batch
+   under ``torch.cuda.set_sync_debug_mode``; (b) teacher forcing:
+   ``forward_train`` over the first batch's prompts and answers against
+   the logits that served them; (c) the same float32 weights at depth 2 on
+   the card and on the CPU (a prefill of a padded batch of 8, four decode
+   steps, ``flash_attention`` at the prefill's shapes); (d) the port's
+   ``flash_attention`` against ``F.scaled_dot_product_attention`` (timed
+   only; nothing on the path calls it) and one decode step with cuBLAS's
+   reduced-precision bf16 reduction off and on. Its summary is the line
+   starting ``[9] {``.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -251,6 +269,21 @@ ROUTES = (("event", dict(use_kernels=True)), ("frame", dict(use_kernels=True, me
 ATLAS_S, ATLAS_CUT_S, ATLAS_EVERY = 10, 2, 50
 ROUTE_FLEET_S, ROUTE_STREAM_US = 4, 200_000
 K6_WINDOWS = 64
+# Phase 9, the LM serving path at Llama-3.2-1B's full width: weights from
+# torch.Generator seed 0 on the card; 24 requests of 16-64 prompt tokens
+# (np.random.default_rng(0)) and 16 new tokens, served in batches of 8 with
+# max_seq = 64 + 16 + 1 as serve_demo sizes it. Teacher forcing holds the
+# served bf16 logits against forward_train within 0.125, four bf16 ULPs of
+# a logit in [4, 8): the same check on the CPU at full width read 0.039 at
+# depth 2 and 0.047 at depth 6. The card against the CPU at depth 2 in
+# float32 (TF32 off) within rtol = atol = 1e-4.
+LM_ARCH, LM_SEED = "llama3.2-1b", 0
+LM_ENGINE = dict(max_delay_s=0.02, max_batch=8, max_seq=81)
+LM_REQUESTS, LM_PROMPT, LM_NEW = 24, (16, 64), 16
+LM_TEACHER_ATOL = 0.125
+LM_CARD_CPU = dict(n_layers=2, decode=4, rtol=1e-4, atol=1e-4)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_S = 989e12
 
 
 def log(*a):
@@ -2655,6 +2688,358 @@ def phase8(scale, kernel_run, fleet_recs, dev) -> dict:
     return dict(routes=routes, atlas=atlas, sync=sync, k6=k6, times=times)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the LM serving path at full width.
+# ---------------------------------------------------------------------------
+
+def count_syncs(fn):
+    """(``fn()``, the host synchronizations it made under
+    ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    import torch
+
+    mode = torch.cuda.get_sync_debug_mode()  # calls may nest
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return out, sum("synchroniz" in str(w.message) and "prototype feature" not in str(w.message)
+                    for w in caught)
+
+
+def lm_requests(vocab: int) -> list:
+    """Phase 9's prompts: lengths 16-64 and tokens from default_rng(0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lo, hi = LM_PROMPT
+    return [[int(t) for t in rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))]
+            for _ in range(LM_REQUESTS)]
+
+
+def lm_bounds(cfg, tokens: int, batch: int, cache_len: int) -> dict:
+    """Least time of a prefill of ``tokens`` prompt tokens and of one
+    decode step of ``batch`` rows: the bf16 weights read once (embedding
+    included) over HBM bandwidth, against the matmul operations over the
+    dense bf16 peak; attention's and the cache's share is counted too."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    weight_bytes = 2 * cfg.param_count()
+    nonembed = cfg.param_count() - cfg.vocab * d
+    kv_bytes = lambda n: 2 * 2 * cfg.n_layers * n * cfg.n_kv_heads * hd  # noqa: E731  k, v in bf16
+    # Prefill: every token through the blocks, the last position's logits;
+    # causal attention over the prompt (scores and PV, half the square).
+    pre_ops = 2 * nonembed * tokens + 2 * batch * d * cfg.vocab \
+        + 2 * 2 * cfg.n_layers * cfg.n_heads * hd * tokens * (tokens // batch) // 2
+    pre_bytes = weight_bytes + kv_bytes(tokens)
+    dec_ops = 2 * cfg.param_count() * batch + 2 * 2 * cfg.n_layers * cfg.n_heads * hd * batch * cache_len
+    dec_bytes = weight_bytes + kv_bytes(batch * cache_len)
+    out = {}
+    for name, ops, nbytes in (("prefill", pre_ops, pre_bytes), ("decode", dec_ops, dec_bytes)):
+        t_ops, t_bytes = ops / PEAK_BF16_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        out[name] = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+                         ops=ops, bytes=nbytes)
+    return out
+
+
+class TimedEngineCalls:
+    """Wraps an engine's prefill and decode calls with CUDA events and keeps
+    each call's logits: per batch, the prefill's ms and each decode step's."""
+
+    def __init__(self, engine):
+        import torch
+
+        self.torch = torch
+        self.events, self.logits = [], []
+        pre, dec = engine._prefill, engine._decode
+        engine._prefill = lambda *a: self._timed("prefill", pre, a)
+        engine._decode = lambda *a: self._timed("decode", dec, a)
+
+    def _timed(self, kind, fn, args):
+        start = self.torch.cuda.Event(enable_timing=True)
+        stop = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        stop.record()
+        if kind == "prefill":
+            self.events.append([])
+            self.logits.append([])
+        self.events[-1].append((kind, start, stop))
+        self.logits[-1].append(out[0])
+        return out
+
+    def batches(self) -> list[dict]:
+        self.torch.cuda.synchronize()
+        return [dict(prefill_ms=ev[0][1].elapsed_time(ev[0][2]),
+                     decode_ms=[a.elapsed_time(b) for _, a, b in ev[1:]]) for ev in self.events]
+
+
+def lm_serve(dev, smi: str) -> dict:
+    """9a: ServingEngine at full width on the card, 24 requests; then one
+    batch again under set_sync_debug_mode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.serve.lm import EngineConfig, Request, ServingEngine
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    masters = Transformer(cfg, LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(masters, EngineConfig(**LM_ENGINE), device=dev)
+    del masters  # the engine serves its own bf16 copy
+    prompts = lm_requests(cfg.vocab)
+    # Warm-up, not timed: one request of two tokens (cuBLAS handles and
+    # kernel modules load on first use).
+    engine.submit(Request(rid=-1, tokens=prompts[0], max_new_tokens=2))
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = TimedEngineCalls(engine)
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=LM_NEW) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(sorted(r.rid for r in done) == list(range(LM_REQUESTS)), f"[9a] served {len(done)} requests")
+    require(all(len(r.output) == LM_NEW and all(0 <= t < cfg.vocab for t in r.output) for r in done),
+            "[9a] every answer holds 16 tokens of the vocabulary")
+    batches = timed.batches()
+    require(len(batches) == LM_REQUESTS // LM_ENGINE["max_batch"], f"[9a] {len(batches)} batches")
+    n_tok = sum(len(r.output) for r in done)
+    lens = [[len(r.tokens) for r in done[i:i + LM_ENGINE["max_batch"]]]
+            for i in range(0, len(done), LM_ENGINE["max_batch"])]
+    for i, (b, ln) in enumerate(zip(batches, lens)):
+        require(len(b["decode_ms"]) == LM_NEW - 1, f"[9a] batch {i}: {len(b['decode_ms'])} decode calls")
+        bd = lm_bounds(cfg, len(ln) * max(ln), len(ln), LM_ENGINE["max_seq"])
+        log(f"[9a] batch {i}: prompts {min(ln)}-{max(ln)} tokens (padded to {max(ln)}); prefill "
+            f"{b['prefill_ms']:.3f} ms (bound {bd['prefill']['bound_ms']:.3f} ms, "
+            f"{bd['prefill']['bound_by']}); decode steps ms " + " ".join(f"{x:.3f}" for x in b["decode_ms"])
+            + f" (bound {bd['decode']['bound_ms']:.3f} ms, {bd['decode']['bound_by']}) [{smi}]")
+    dec = [x for b in batches for x in b["decode_ms"]]
+    lat = float(np.mean([r.batch_latency_s for r in done]))
+    log(f"[9a] {LM_ARCH} full width ({cfg.param_count():,} parameters, bf16 served copy), "
+        f"{len(done)} requests, {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s, mean batch "
+        f"latency {lat * 1e3:.1f} ms; decode step median {statistics.median(dec):.3f} ms (min "
+        f"{min(dec):.3f}, max {max(dec):.3f}); peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated); masters init {init_s:.2f} s [{smi}]")
+    # The first batch again, each decode step and the whole step under
+    # set_sync_debug_mode("warn"): the same tokens, no synchronization in
+    # a decode step, one a token (the read-back) besides the prompt upload.
+    first = done[:LM_ENGINE["max_batch"]]
+    for r in first:
+        engine.submit(Request(rid=100 + r.rid, tokens=r.tokens, max_new_tokens=LM_NEW))
+    dec_syncs = []
+    inner = engine._decode
+
+    def counted(*a):
+        out, n = count_syncs(lambda: inner(*a))
+        dec_syncs.append(n)
+        return out
+
+    engine._decode = counted
+    again, total = count_syncs(engine.step)
+    engine._decode = inner
+    require([r.output for r in again] == [r.output for r in first], "[9a] the first batch served again differs")
+    require(dec_syncs == [0] * (LM_NEW - 1), f"[9a] decode_step synchronized the host: {dec_syncs}")
+    require(LM_NEW <= total <= LM_NEW + 2, f"[9a] {total} host synchronizations in one batch")
+    log(f"[9a] host synchronizations under set_sync_debug_mode('warn'): {dec_syncs[0]} in each of "
+        f"{len(dec_syncs)} decode_step calls, {total} in the whole batch: one a token ({LM_NEW} "
+        f"read-backs) and {total - LM_NEW} for the prompt's upload")
+    return dict(engine=engine, cfg=cfg, done=done, timed=timed, batches=batches, wall_s=wall,
+                tokens=n_tok, peak_bytes=peak, syncs=total, decode_syncs=dec_syncs[0],
+                mean_batch_latency_s=lat, decode_median_ms=statistics.median(dec))
+
+
+def lm_teacher_forcing(served: dict) -> dict:
+    """9b: forward_train over the first batch's prompts and answers against
+    the prefill / decode logits that served them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import forward_train
+
+    engine, done = served["engine"], served["done"][:LM_ENGINE["max_batch"]]
+    logits = torch.stack(served["timed"].logits[0], 1)  # (B, new tokens, V)
+    lens = [len(r.tokens) for r in done]
+    max_len = max(lens)
+    toks = np.zeros((len(done), max_len + LM_NEW - 1), np.int32)
+    for i, r in enumerate(done):
+        toks[i, max_len - lens[i]:max_len] = r.tokens
+        toks[i, max_len:] = r.output[:-1]
+    tf = forward_train(engine.model, {"tokens": toks})[0][:, max_len - 1:]
+    err = float((tf - logits).abs().max())
+    top = torch.topk(logits, 2, -1).values
+    clear = (top[..., 0] - top[..., 1]) > 2 * LM_TEACHER_ATOL
+    served_tok = torch.tensor([r.output for r in done], device=logits.device)
+    agree = bool(((tf.argmax(-1) == served_tok) | ~clear).all())
+    require(bool((logits.argmax(-1) == served_tok).all()), "[9b] the kept logits did not serve the tokens")
+    require(err <= LM_TEACHER_ATOL, f"[9b] teacher forcing: max abs logit difference {err} > {LM_TEACHER_ATOL}")
+    require(agree, "[9b] teacher forcing picks another token where the margin exceeds twice the bound")
+    log(f"[9b] teacher forcing at full width, batch 0 ({len(done)} x {toks.shape[1]} tokens, bf16): "
+        f"max abs logit difference {err:.4f} (bound {LM_TEACHER_ATOL}); tokens equal at all "
+        f"{int(clear.sum())} of {clear.numel()} positions whose top-1/top-2 margin exceeds "
+        f"{2 * LM_TEACHER_ATOL}")
+    return dict(max_abs_err=err, clear=int(clear.sum()), positions=clear.numel())
+
+
+def lm_card_against_cpu(dev, smi: str) -> dict:
+    """9c: the same float32 weights at full width, depth 2, on the card and
+    on the CPU: a prefill of a padded batch of 8 and 4 decode steps; the
+    port's flash_attention at the prefill's shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, cast_weights, decode_step, prefill
+    from repro_torch.models.attention import flash_attention
+
+    c = LM_CARD_CPU
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=c["n_layers"], dtype="float32")
+    gpu = Transformer(cfg, LM_SEED, device=dev)
+    cpu = cast_weights(gpu, torch.float32, "cpu")
+    prompts = lm_requests(cfg.vocab)[:LM_ENGINE["max_batch"]]
+    max_len = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), max_len), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, max_len - len(p):] = p
+    log(f"[9c] the CPU side: {torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} "
+        f"threads, float32 matmul precision {torch.get_float32_matmul_precision()}")
+    lg, cg = prefill(gpu, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    lc, cc = prefill(cpu, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    errs, clear, total = [], 0, 0
+    for step in range(c["decode"] + 1):
+        errs.append(close(lg, lc, f"[9c] logits, step {step}", c["rtol"], c["atol"]))
+        top = torch.topk(lc, 2, -1).values
+        ok = (top[:, 0] - top[:, 1]) > 2 * (c["atol"] + c["rtol"] * top[:, 0].abs())
+        require(bool(((lg.argmax(-1).cpu() == lc.argmax(-1)) | ~ok).all()), f"[9c] tokens differ, step {step}")
+        clear, total = clear + int(ok.sum()), total + ok.numel()
+        if step == c["decode"]:
+            break
+        nxt = {"tokens": lc.argmax(-1)[:, None].numpy()}  # the CPU's tokens feed both
+        lg, cg = decode_step(gpu, nxt, cg, max_len + step)
+        lc, cc = decode_step(cpu, nxt, cc, max_len + step)
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // kvh
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((len(prompts), max_len, kvh, g, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((len(prompts), max_len, kvh, hd)).astype(np.float32))
+            for _ in "kv")
+    pos = torch.arange(max_len, dtype=torch.int32)
+    flash_err = close(flash_attention(*(a.to(dev) for a in (q, k, v, pos, pos))),
+                      flash_attention(q, k, v, pos, pos), "[9c] flash_attention", RTOL, ATOL)
+    log(f"[9c] card against CPU, {LM_ARCH} full width at depth {c['n_layers']}, float32, "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}: prefill of {toks.shape} then "
+        f"{c['decode']} decode steps, max abs logit difference per step "
+        + " ".join(f"{e:.2e}" for e in errs) + f" (rtol = atol = {c['atol']}); tokens equal at "
+        f"{clear} of {total} rows with a clear margin; flash_attention at {tuple(q.shape)} within "
+        f"{flash_err:.2e} [{smi}]")
+    return dict(max_abs_err=max(errs), flash_err=flash_err)
+
+
+def lm_yardsticks(served: dict, smi: str) -> dict:
+    """9d: the port's flash_attention at the served prefill's shapes (bf16)
+    against F.scaled_dot_product_attention of the same function (GQA
+    expanded, causal), and one decode step with cuBLAS's reduced-precision
+    bf16 reduction off (the phase's setting) and on."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.attention import flash_attention
+
+    engine, cfg = served["engine"], served["cfg"]
+    dev = engine.device
+    b, s = LM_ENGINE["max_batch"], LM_PROMPT[1]
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // kvh
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(b, s, kvh, g, hd, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, s, kvh, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, kvh, hd, device=dev, generator=gen).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    qs = q.reshape(b, s, kvh * g, hd).transpose(1, 2)  # head h = kv * G + g
+    ks, vs = (a.repeat_interleave(g, dim=2).transpose(1, 2) for a in (k, v))
+    ours = flash_attention(q, k, v, pos, pos)
+    lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True).transpose(1, 2).reshape(ours.shape)
+    lib_err = close(ours, lib, "[9d] flash_attention against SDPA (bf16 rounding)", 2 ** -7, 2 ** -7)
+    flash_ms = cuda_ms(lambda: flash_attention(q, k, v, pos, pos))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_ops = 2 * 2 * b * cfg.n_heads * hd * s * (s + 1) // 2
+    attn_bound = max(n_bytes / PEAK_BYTES_S, n_ops / PEAK_BF16_S) * 1e3
+    # One decode step at the served shapes (batch 8, position 64).
+    toks = torch.zeros((b, s), dtype=torch.int32)
+    _, cache = prefill(engine.model, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    nxt = {"tokens": torch.zeros((b, 1), dtype=torch.long, device=dev)}
+    step_ms = {}
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    for setting in (False, True):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = setting
+        step_ms[setting] = cuda_ms(lambda: decode_step(engine.model, nxt, cache, s), iters=20)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    # Where a step's time goes: the device's busy time and operations per
+    # call under the profiler, against the call's time under CUDA events.
+    step = lambda: decode_step(engine.model, nxt, cache, s)  # noqa: E731
+    full = lambda: prefill(engine.model, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])  # noqa: E731
+    dec_busy, dec_ops = kernel_device_profile(step, ("",), iters=5)
+    pre_ms = cuda_ms(full, iters=10)
+    pre_busy, pre_ops = kernel_device_profile(full, ("",), iters=5)
+    bd = lm_bounds(cfg, b * s, b, LM_ENGINE["max_seq"])
+    log(f"[9d] attention at the served prefill's shapes (B {b}, S {s}, {cfg.n_heads} q heads over "
+        f"{kvh} kv heads, head_dim {hd}, bf16): the port's flash_attention {flash_ms:.4f} ms, "
+        f"F.scaled_dot_product_attention (GQA expanded, causal; timed only) {sdpa_ms:.4f} ms, bound "
+        f"{attn_bound:.4f} ms; outputs within {lib_err:.2e}. One decode step (batch {b}, position {s}): "
+        f"{step_ms[False]:.3f} ms with allow_bf16_reduced_precision_reduction False, "
+        f"{step_ms[True]:.3f} ms with it True; bound {bd['decode']['bound_ms']:.3f} ms "
+        f"({bd['decode']['bound_by']}) [{smi}]")
+    log(f"[9d] under the profiler: a decode step keeps the device busy {dec_busy:.3f} ms in "
+        f"{dec_ops:.0f} device operations ({dec_busy / step_ms[False]:.1%} of its {step_ms[False]:.3f} ms); "
+        f"a prefill of {b} x {s} tokens takes {pre_ms:.3f} ms, the device busy {pre_busy:.3f} ms in "
+        f"{pre_ops:.0f} operations (bound {bd['prefill']['bound_ms']:.3f} ms, {bd['prefill']['bound_by']}) "
+        f"[{smi}]")
+    return dict(flash_ms=flash_ms, sdpa_ms=sdpa_ms, attn_bound_ms=attn_bound,
+                decode_ms=step_ms[False], decode_reduced_ms=step_ms[True], decode_busy_ms=dec_busy,
+                decode_device_ops=dec_ops, prefill_64_ms=pre_ms, prefill_busy_ms=pre_busy,
+                prefill_device_ops=pre_ops)
+
+
+def phase9(dev, smi: str) -> dict:
+    """Phase 9, the LM serving path at full width, on the card with no
+    error caught."""
+    import torch
+
+    t9 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    log(f"[9] allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}, "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    served = lm_serve(dev, smi)
+    teacher = lm_teacher_forcing(served)
+    card_cpu = lm_card_against_cpu(dev, smi)
+    yard = lm_yardsticks(served, smi)
+    out = dict(
+        tokens_per_s=served["tokens"] / served["wall_s"], mean_batch_latency_s=served["mean_batch_latency_s"],
+        prefill_ms=[b["prefill_ms"] for b in served["batches"]], decode_median_ms=served["decode_median_ms"],
+        peak_gib=served["peak_bytes"] / 2**30, syncs_per_batch=served["syncs"],
+        teacher_max_abs_err=teacher["max_abs_err"], card_cpu_max_abs_err=card_cpu["max_abs_err"], **yard)
+    log(f"[9] {json.dumps(out)}")
+    log(f"[9] phase wall time {time.perf_counter() - t9:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2816,6 +3201,9 @@ def main() -> int:
     # Phase 8: the frame oracle and the atlas event core against the other
     # float routes and the CPU, each run's counters set to 0 just before it.
     p8 = phase8(scale, kernel_run, fleet_recs, dev)
+
+    # Phase 9: the LM serving path at Llama-3.2-1B's full width.
+    phase9(dev, smi)
 
     rows = []
     for name, r in kernels.items():

@@ -1,0 +1,19 @@
+"""The LM model zoo of the port: decoder-only transformers in plain PyTorch.
+
+Ported so far: the attention-only families (dense GQA transformers, the
+audio and VLM backbones with stubbed modality frontends). MLA, MoE,
+RG-LRU and xLSTM wait (ROADMAP item 9b).
+"""
+from repro_torch.models.transformer import (  # noqa: F401
+    Transformer,
+    cache_from_jax,
+    cache_to_numpy,
+    cast_weights,
+    decode_step,
+    forward_train,
+    init_cache,
+    init_params,
+    params_from_jax,
+    params_to_numpy,
+    prefill,
+)

@@ -1,0 +1,413 @@
+"""Decoder-only model assembly: the port of ``repro.models.transformer``
+for the attention-only families.
+
+The block types ``"attn"`` and ``"local"`` without MLA and without
+experts are ported; that covers ``llama3.2-1b``, ``stablelm-3b`` and
+``deepseek-67b`` (dense), ``musicgen-large`` (audio: embeddings in,
+sinusoidal positions) and ``qwen2-vl-2b`` (vlm: embeddings in, M-RoPE).
+MLA, MoE, RG-LRU and xLSTM blocks raise ``NotImplementedError``
+(ROADMAP item 9b).
+
+The reference scans stacked cycle parameters; the port runs an
+``nn.ModuleList`` of layers in order, which is the same arithmetic, and
+keeps one decode-cache layout, a list of per-layer caches. Weights keep
+the reference's ``(d_in, d_out)`` orientation (``x @ w``) and are float32
+masters cast to the config's dtype at each use, as there;
+:func:`cast_weights` makes a copy cast once (the serving engine's), which
+gives the same bits. ``params_from_jax`` / ``params_to_numpy`` and
+``cache_from_jax`` / ``cache_to_numpy`` carry weights and decode caches
+across the two packages.
+
+Three entry points, matching the shape kinds:
+  forward_train  — full causal forward, logits + MoE aux loss (0 here)
+  prefill        — forward + decode-cache construction
+  decode_step    — one token against the cache
+
+Inputs are a dict: {"tokens": (B, S) integer} or, for stubbed-frontend
+archs (audio/vlm), {"embeds": (B, S, d)}; VLM adds "mrope_positions"
+(3, B, S). Decode takes (inputs, cache, position).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models.common import (
+    FFN,
+    dense_weight,
+    ffn_apply,
+    rmsnorm,
+    sinusoidal_positions,
+    truncated_normal_init,
+)
+
+Cache = list  # one {"k", "v", "pos"} dict a layer
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _split_layers(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
+    """(n_cycles, remainder_types), as the reference groups its layers."""
+    plen = len(cfg.block_pattern)
+    return cfg.n_layers // plen, cfg.layer_types[(cfg.n_layers // plen) * plen:]
+
+
+# ---------------------------------------------------------------------------
+# Layers.
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One layer: ``norm1``, the attention weights ``inner`` and, where
+    ``d_ff > 0``, ``norm2`` and the gated FFN ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, bt: str, generator: torch.Generator | None = None, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if bt in ("rglru", "mlstm", "slstm"):
+            raise NotImplementedError(
+                f"block type {bt!r} is not ported yet (ROADMAP item 9b: the RG-LRU and xLSTM families)")
+        if bt not in ("attn", "local"):
+            raise ValueError(bt)
+        if cfg.use_mla:
+            raise NotImplementedError("MLA attention is not ported yet (ROADMAP item 9b)")
+        if cfg.n_experts:
+            raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP item 9b)")
+        self.bt = bt
+        self.window = cfg.local_window if bt == "local" else None
+        d = cfg.d_model
+        self.norm1 = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
+        self.inner = A.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, generator,
+                                 device=device, dtype=dtype)
+        if cfg.d_ff:
+            self.norm2 = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
+            self.ffn = FFN(d, cfg.d_ff, generator, device=device, dtype=dtype)
+
+
+def init_layer(generator: torch.Generator, cfg: ModelConfig, bt: str) -> Block:
+    return Block(cfg, bt, generator, device=generator.device)
+
+
+def _pos_cfg(cfg: ModelConfig, mrope_positions=None) -> dict[str, Any]:
+    if cfg.pos_kind == "mrope":
+        return {"kind": "mrope", "theta": cfg.rope_theta, "sections": cfg.mrope_sections,
+                "mrope_positions": mrope_positions}
+    if cfg.pos_kind == "rope":
+        return {"kind": "rope", "theta": cfg.rope_theta}
+    return {"kind": "none"}
+
+
+def _attn_dims(cfg: ModelConfig) -> dict[str, int]:
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim)
+
+
+def _ffn_part(lp: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if hasattr(lp, "ffn"):
+        x = x + ffn_apply(lp.ffn, rmsnorm(x, lp.norm2, cfg.norm_eps), cfg.act)
+    return x
+
+
+def apply_layer_train(lp: Block, x, *, cfg: ModelConfig, positions, pos_cfg) -> torch.Tensor:
+    h = rmsnorm(x, lp.norm1, cfg.norm_eps)
+    x = x + A.attention_apply(lp.inner, h, **_attn_dims(cfg), positions=positions,
+                              pos_cfg=pos_cfg, window=lp.window)
+    return _ffn_part(lp, x, cfg)
+
+
+def apply_layer_prefill(lp: Block, x, *, cfg: ModelConfig, positions, pos_cfg, cache_len: int):
+    h = rmsnorm(x, lp.norm1, cfg.norm_eps)
+    y, cache = A.attention_prefill(lp.inner, h, **_attn_dims(cfg), positions=positions,
+                                   pos_cfg=pos_cfg, window=lp.window, cache_len=cache_len)
+    return _ffn_part(lp, x + y, cfg), cache
+
+
+def apply_layer_decode(lp: Block, x, cache, position: int, *, cfg: ModelConfig, pos_cfg):
+    h = rmsnorm(x, lp.norm1, cfg.norm_eps)
+    y, cache = A.attention_decode(lp.inner, h, cache, position, **_attn_dims(cfg),
+                                  pos_cfg=pos_cfg, window=lp.window)
+    return _ffn_part(lp, x + y, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Model.
+# ---------------------------------------------------------------------------
+
+class Transformer(nn.Module):
+    """``embed`` (vocab, d), ``final_norm``, ``lm_head`` (d, vocab; absent
+    with tied embeddings) and ``layers``, one :class:`Block` a layer.
+
+    ``seed`` draws every weight from one ``torch.Generator`` on the device;
+    ``seed=None`` leaves them uninitialised (for :func:`params_from_jax`
+    and :func:`cast_weights`). ``weight_dtype`` is the dtype of the dense
+    weights; the norm scales are float32 always. Runs on the card unless
+    ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: ModelConfig, seed: int | None = 0, *, device="cuda",
+                 weight_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        d, v = cfg.d_model, cfg.vocab
+        # d^-0.5 keeps tied-embedding logits O(1) at init.
+        embed = (truncated_normal_init(gen, (v, d), d ** -0.5) if gen is not None
+                 else torch.empty(v, d, dtype=weight_dtype, device=dev))
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(torch.ones(d, device=dev), requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.lm_head = dense_weight(gen, d, v, device=dev, dtype=weight_dtype)
+        self.layers = nn.ModuleList(
+            Block(cfg, bt, gen, device=dev, dtype=weight_dtype) for bt in cfg.layer_types)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Transformer:
+    """Random weights from ``seed`` (the reference's ``init_params(key, cfg)``)."""
+    return Transformer(cfg, seed, device=device)
+
+
+def cast_weights(model: Transformer, dtype: torch.dtype | None = None, device=None) -> Transformer:
+    """A copy of ``model`` with every dense weight cast once to ``dtype``
+    (the config's by default) on ``device`` (the model's by default); the
+    norm scales stay float32. The forward casts each weight to the
+    activation dtype at use, so the copy computes the same bits as the
+    float32 masters."""
+    dtype = _dtype(model.cfg) if dtype is None else dtype
+    out = Transformer(model.cfg, None, device=device or model.device, weight_dtype=dtype)
+    with torch.no_grad():
+        for dst, src in zip(out.parameters(), model.parameters()):
+            dst.copy_(src)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward passes.
+# ---------------------------------------------------------------------------
+
+def _tensor(a, dev) -> torch.Tensor:
+    """An input as a tensor on ``dev`` (numpy arrays are copied)."""
+    return a.to(dev) if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a)).to(dev)
+
+
+def _embed(model: Transformer, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings (gathered, then cast: the same bits as casting the
+    table first) or the frontend's embeddings, in the config's dtype."""
+    dt, dev = _dtype(cfg), model.device
+    if cfg.frontend is not None and "embeds" in inputs:
+        return _tensor(inputs["embeds"], dev).to(dt)
+    return F.embedding(_tensor(inputs["tokens"], dev).long(), model.embed).to(dt)
+
+
+def _embed_inputs(model: Transformer, inputs: dict, cfg: ModelConfig):
+    dt, dev = _dtype(cfg), model.device
+    x = _embed(model, inputs, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    if cfg.pos_kind == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
+    return x, positions
+
+
+def _mrope(inputs: dict, dev):
+    m = inputs.get("mrope_positions")
+    return None if m is None else _tensor(m, dev)
+
+
+def _logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ model.embed.to(x.dtype).T
+    else:
+        logits = x @ model.lm_head.to(x.dtype)
+    return logits.float()
+
+
+@torch.no_grad()
+def forward_train(model: Transformer, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward. Returns (logits float32 (B, S, V), moe_aux
+    scalar: 0, no expert layer is ported). The forward only: the backward
+    and the reference's ``remat`` wait with training (ROADMAP item 9c)."""
+    cfg = model.cfg
+    x, positions = _embed_inputs(model, inputs, cfg)
+    pos_cfg = _pos_cfg(cfg, _mrope(inputs, model.device))
+    for lp in model.layers:
+        x = apply_layer_train(lp, x, cfg=cfg, positions=positions, pos_cfg=pos_cfg)
+    return _logits(model, x, cfg), torch.zeros((), device=model.device)
+
+
+@torch.no_grad()
+def prefill(model: Transformer, inputs: dict, *, cache_len: int | None = None) -> tuple[torch.Tensor, Cache]:
+    """Forward + cache. Returns (last-position logits (B, V), cache)."""
+    cfg = model.cfg
+    x, positions = _embed_inputs(model, inputs, cfg)
+    pos_cfg = _pos_cfg(cfg, _mrope(inputs, model.device))
+    clen = cache_len if cache_len is not None else x.shape[1]
+    cache = []
+    for lp in model.layers:
+        x, c = apply_layer_prefill(lp, x, cfg=cfg, positions=positions, pos_cfg=pos_cfg,
+                                   cache_len=clen)
+        cache.append(c)
+    return _logits(model, x[:, -1:], cfg)[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, inputs: dict, cache: Cache, position) -> tuple[torch.Tensor, Cache]:
+    """One decode step at absolute ``position`` (an int; a 0-d tensor is
+    read once on the host). Returns (logits (B, V), cache): the new token
+    is written into ``cache`` in place. A position past the cache writes
+    its last slot, as the reference's clamped dynamic update does."""
+    cfg = model.cfg
+    position = int(position)
+    dt, dev = _dtype(cfg), model.device
+    x = _embed(model, inputs, cfg)
+    b = x.shape[0]
+    if cfg.pos_kind == "sinusoidal":
+        pos_b = torch.full((b, 1), position, dtype=torch.int32, device=dev)
+        x = x + sinusoidal_positions(pos_b, cfg.d_model).to(dt)
+    mrope = None
+    if cfg.pos_kind == "mrope":
+        # Text continuation: t = h = w = position.
+        mrope = torch.full((3, b, 1), position, dtype=torch.int32, device=dev)
+    pos_cfg = _pos_cfg(cfg, mrope)
+    for i, lp in enumerate(model.layers):
+        x, cache[i] = apply_layer_decode(lp, x, cache[i], position, cfg=cfg, pos_cfg=pos_cfg)
+    return _logits(model, x, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Cache init.
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ModelConfig, bt: str, b: int, cache_len: int, dt, device) -> dict:
+    if bt not in ("attn", "local") or cfg.use_mla:
+        raise NotImplementedError(f"no decode cache for block type {bt!r} yet (ROADMAP item 9b)")
+    window = cfg.local_window if bt == "local" else None
+    return A.init_attn_cache(b, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
+                             window=window, device=device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -> Cache:
+    """An empty decode cache: one buffer set a layer (the reference's
+    ``stacked=False`` layout)."""
+    dev = resolve_device(device)
+    return [_layer_cache(cfg, bt, batch, cache_len, _dtype(cfg), dev) for bt in cfg.layer_types]
+
+
+# ---------------------------------------------------------------------------
+# Weights and caches across the two packages (numpy in between).
+# ---------------------------------------------------------------------------
+
+def _layer_source(cfg: ModelConfig, li: int) -> tuple[str, int | None]:
+    """Where layer ``li`` sits in the reference's tree: (``"cycles/blk{j}"``,
+    cycle index) or (``"rem{i}"``, None)."""
+    n_cycles, _ = _split_layers(cfg)
+    plen = len(cfg.block_pattern)
+    if li < n_cycles * plen:
+        return f"blk{li % plen}", li // plen
+    return f"rem{li - n_cycles * plen}", None
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _nest(flat: dict[str, Any]) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _layer_tree(tree: dict, cfg: ModelConfig, li: int) -> dict:
+    name, cycle = _layer_source(cfg, li)
+    if cycle is None:
+        return tree[name]
+    return {k: v[cycle] for k, v in _flatten(tree["cycles"][name]).items()}
+
+
+def params_from_jax(np_params: dict, cfg: ModelConfig, *, device="cuda") -> Transformer:
+    """The reference's parameter tree (numpy arrays: ``embed``,
+    ``final_norm``, optional ``lm_head``, ``cycles`` stacked along the
+    leading dim, ``rem{i}``) as a port :class:`Transformer` on ``device``.
+    The orientation is the reference's; nothing is transposed."""
+    model = Transformer(cfg, None, device=device)
+    state = {"embed": np_params["embed"], "final_norm": np_params["final_norm"]}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = np_params["lm_head"]
+    for li in range(cfg.n_layers):
+        for k, v in _flatten(_layer_tree(np_params, cfg, li)).items():
+            state[f"layers.{li}.{k}"] = v
+    own = dict(model.named_parameters())
+    if set(own) != set(state):
+        raise ValueError(f"parameter trees differ: {sorted(set(own) ^ set(state))[:5]}")
+    with torch.no_grad():
+        for k, v in state.items():
+            if tuple(own[k].shape) != np.shape(v):
+                raise ValueError(f"{k}: shape {np.shape(v)} where {tuple(own[k].shape)} is expected")
+            own[k].copy_(torch.from_numpy(np.array(v)))
+    return model
+
+
+def _to_reference_tree(per_layer: list[dict], cfg: ModelConfig) -> dict:
+    """Per-layer numpy trees in the reference's layout: cycles stacked."""
+    n_cycles, rem = _split_layers(cfg)
+    plen = len(cfg.block_pattern)
+    out: dict = {}
+    if n_cycles:
+        out["cycles"] = {
+            f"blk{j}": _nest({k: np.stack([_flatten(per_layer[i * plen + j])[k]
+                                           for i in range(n_cycles)])
+                              for k in _flatten(per_layer[j])})
+            for j in range(plen)
+        }
+    for i in range(len(rem)):
+        out[f"rem{i}"] = per_layer[n_cycles * plen + i]
+    return out
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The model's weights as the reference's parameter tree of numpy arrays."""
+    cfg = model.cfg
+    sd = {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
+    layers = [_nest({k.split(".", 2)[2]: v for k, v in sd.items() if k.startswith(f"layers.{li}.")})
+              for li in range(cfg.n_layers)]
+    out = {"embed": sd["embed"], "final_norm": sd["final_norm"], **_to_reference_tree(layers, cfg)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = sd["lm_head"]
+    return out
+
+
+def cache_to_numpy(cache: Cache, cfg: ModelConfig) -> dict:
+    """A port decode cache as the reference's (stacked) cache tree of numpy
+    arrays."""
+    return _to_reference_tree([{k: v.cpu().numpy() for k, v in c.items()} for c in cache], cfg)
+
+
+def cache_from_jax(np_cache: dict, cfg: ModelConfig, *, device="cuda") -> Cache:
+    """The reference's stacked decode cache (numpy arrays, as ``prefill``
+    or ``init_cache`` returns it) as a port cache on ``device``."""
+    dev = resolve_device(device)
+    return [{k: _tensor(v, dev) for k, v in _layer_tree(np_cache, cfg, li).items()}
+            for li in range(cfg.n_layers)]

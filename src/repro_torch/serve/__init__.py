@@ -1,5 +1,4 @@
-"""The detection-serving stack of the port (``repro.serve`` without the
-LM engine).
+"""The serving stack of the port (``repro.serve``).
 
 * ``batcher``  — the paper's dual-threshold admission policy as a
   generic, fake-clock-testable primitive.
@@ -19,6 +18,10 @@ LM engine).
   compressed cross-shard exchange (DESIGN.md Sec. 15).
 * ``chaos_shards`` — the shard-level chaos harness (whole-shard stalls,
   forced migrations/rebalances on top of the per-sensor taxonomy).
+* ``lm``       — the batched LM engine, a thin client of the shared
+  batcher. Lazy here: importing ``repro_torch.serve`` imports neither
+  ``repro_torch.serve.lm`` nor ``repro_torch.models``;
+  ``repro_torch.serve.engine`` remains as a deprecated shim.
 """
 from repro_torch.serve.batcher import (  # noqa: F401
     AdmissionConfig,
@@ -63,3 +66,19 @@ from repro_torch.serve.service import (  # noqa: F401
     session_export_from_numpy,
     session_export_to_numpy,
 )
+
+# LM engine names resolve lazily so the detection-serving surface does
+# not import the LM client (or the models it drags in) eagerly.
+_LM_NAMES = ("DualThresholdBatcher", "EngineConfig", "Request", "ServingEngine")
+
+
+def __getattr__(name: str):
+    if name in _LM_NAMES:
+        from repro_torch.serve import lm
+
+        return getattr(lm, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LM_NAMES))

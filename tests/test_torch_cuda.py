@@ -979,3 +979,103 @@ def test_window_entropy_against_frame_oracle_on_real_frames(cuda_dev):
         torch.testing.assert_close(got[2], TM.local_contrast(patches), rtol=RTOL, atol=ATOL)
         checked += int(sel.sum())
     assert checked > 20
+
+
+def _lm_pair(cuda_dev, arch="llama3.2-1b", preset=None):
+    """The same float32 weights on the card and on the CPU (TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import params_from_jax, params_to_numpy, init_params
+
+    if preset is None:  # tests/test_models.py's reduce_cfg
+        cfg = dataclasses.replace(get_config(arch), n_layers=2, d_model=128, n_heads=4,
+                                  n_kv_heads=4, d_ff=256, vocab=512, head_dim=32, dtype="float32")
+    else:
+        cfg = reduced_config(arch, preset)
+    cpu = init_params(0, cfg, device="cpu")
+    return cfg, cpu, params_from_jax(params_to_numpy(cpu), cfg, device=cuda_dev)
+
+
+@pytest.mark.cuda
+def test_lm_reduced_model_on_card_equals_cpu(cuda_dev):
+    """A ``reduce_cfg`` Llama in float32 on the card against the CPU:
+    forward, prefill of a padded batch and three decode steps within rtol =
+    atol = 1e-4 with TF32 off; ``flash_attention`` within 1e-5."""
+    from repro_torch.models import attention as TA
+    from repro_torch.models import decode_step, forward_train, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _lm_pair(cuda_dev)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4, 11)).astype(np.int32)
+    toks[:2, :4] = 0  # left padding, unmasked as in the reference
+    torch.testing.assert_close(forward_train(gpu, {"tokens": toks})[0].cpu(), forward_train(cpu, {"tokens": toks})[0],
+                               rtol=1e-4, atol=1e-4)
+    lg, cg = prefill(gpu, {"tokens": toks[:, :8]}, cache_len=12)
+    lc, cc = prefill(cpu, {"tokens": toks[:, :8]}, cache_len=12)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        step = {"tokens": toks[:, 8 + i:9 + i]}
+        (lg, cg), (lc, cc) = decode_step(gpu, step, cg, 8 + i), decode_step(cpu, step, cc, 8 + i)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    q = torch.from_numpy(rng.standard_normal((2, 37, 2, 3, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 37, 2, 16)).astype(np.float32)) for _ in "kv")
+    pos = torch.arange(37, dtype=torch.int32)
+    want = TA.flash_attention(q, k, v, pos, pos, q_chunk=8, kv_chunk=16)
+    got = TA.flash_attention(*(a.to(cuda_dev) for a in (q, k, v, pos, pos)), q_chunk=8, kv_chunk=16)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def _count_syncs(fn):
+    """(result of ``fn()``, host synchronizations it made) under
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    mode = torch.cuda.get_sync_debug_mode()  # calls may nest
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return out, sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                    for w in caught)
+
+
+@pytest.mark.cuda
+def test_lm_engine_step_on_card_equals_cpu(cuda_dev):
+    """One ``ServingEngine`` step of the tiny preset on the card and on the
+    CPU (fake clock, mixed prompt lengths): the same tokens; no decode step
+    synchronizes the host, and the whole step adds one synchronization a
+    token (the read-back) to the prompt's upload."""
+    from repro_torch.serve.lm import EngineConfig, Request, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _lm_pair(cuda_dev, preset="tiny")
+    ecfg = EngineConfig(max_batch=3, max_seq=20)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in (5, 9, 3)]
+    outs, decode_syncs = {}, []
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, cuda_dev)):
+        eng = ServingEngine(model, ecfg, lambda: 0.0, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=6))
+        if name == "cpu":
+            outs[name] = [r.output for r in eng.step()]
+            continue
+        inner = eng._decode
+
+        def counted(*a, inner=inner):
+            out, n = _count_syncs(lambda: inner(*a))
+            decode_syncs.append(n)
+            return out
+
+        eng._decode = counted
+        batch, total = _count_syncs(eng.step)
+        outs[name] = [r.output for r in batch]
+    assert outs["cuda"] == outs["cpu"] and all(len(o) == 6 for o in outs["cuda"])
+    assert decode_syncs == [0] * 5, decode_syncs
+    assert 6 <= total <= 6 + 2, total

@@ -41,14 +41,21 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.serve.faults", "repro_torch.serve.service",
               "repro_torch.distributed.compression", "repro_torch.serve.chaos",
               "repro_torch.serve.constellation", "repro_torch.serve.chaos_shards",
-              "repro_torch.core.pipeline.event_core", "repro_torch.core.metrics"):
+              "repro_torch.core.pipeline.event_core", "repro_torch.core.metrics",
+              "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.llama3_2_1b",
+              "repro_torch.configs.xlstm_350m", "repro_torch.models", "repro_torch.models.common",
+              "repro_torch.models.attention", "repro_torch.models.transformer",
+              "repro_torch.serve.lm", "repro_torch.serve.engine", "repro_torch.launch",
+              "repro_torch.launch.serve", "repro_torch.launch.train"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",
         "event_unpack", "grid_quantize", "window_entropy"}
     assert {p.name for p in (REPO / "examples").glob("torch_*.py")} == {
         "torch_quickstart.py", "torch_fleet_quickstart.py", "torch_serve_detections.py",
-        "torch_stream_quickstart.py", "torch_constellation_quickstart.py"}
+        "torch_stream_quickstart.py", "torch_constellation_quickstart.py", "torch_serve_lm.py"}
+    assert {p.stem for p in (PORT / "configs").glob("*_*.py")} == {
+        p.stem for p in (REPO / "src" / "repro" / "configs").glob("*_*.py")}
 
 
 def test_importing_every_module_loads_no_jax():
@@ -90,12 +97,20 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     )
     from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
     from repro_torch.data.synthetic import make_recording
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import (
+        Transformer, cache_from_jax, init_cache, init_params, params_from_jax, params_to_numpy,
+    )
+    from repro_torch.serve.lm import ServingEngine
     from repro_torch.serve import (
         ChaosConfig, ChaosHarness, ConstellationService, DetectionService, ShardChaosConfig,
         ShardChaosHarness,
     )
 
     rec = make_recording(seed=1, duration_s=0.05)
+    tiny = reduced_config("llama3.2-1b", "tiny")
+    cpu_model = init_params(0, tiny, device="cpu")
     for call in (
         lambda: resolve_device(),
         lambda: pad_windows(rec.x, rec.y, rec.t, rec.p),
@@ -136,6 +151,14 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
                              PipelineConfig(numerics="fixed", metrics_impl="megakernel")).run(),
         lambda: ShardChaosHarness().run(),
         lambda: ShardChaosHarness(ShardChaosConfig(n_shards=4)).run(),
+        lambda: Transformer(tiny),
+        lambda: init_params(0, tiny),
+        lambda: init_cache(tiny, 2, 8),
+        lambda: params_from_jax(params_to_numpy(cpu_model), tiny),
+        lambda: cache_from_jax({}, tiny),
+        lambda: ServingEngine(cpu_model),
+        lambda: serve_demo(),
+        lambda: serve_demo(arch="qwen2-vl-2b", n_requests=2),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -239,3 +262,16 @@ def test_example_constellation_quickstart_runs_on_the_cpu_when_asked():
     assert "shard 0 stalled -> rescued: down=[0], loads [0, 6], sessions lost: 0" in out.stdout
     assert "shard 0 repaired and revived: down=[]" in out.stdout
     assert "done: 114 windows, 3 migrations (1 rescue)" in out.stdout
+
+
+def test_example_serve_lm_runs_on_the_cpu_when_asked():
+    """The port's LM serving example on the CPU: 24 requests of 8 tokens
+    through the tiny preset."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_serve_lm.py"), "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "serving stats on cpu" in out.stdout
+    assert "requests: 24" in out.stdout and "tokens_generated: 192" in out.stdout
