@@ -120,7 +120,23 @@ Phases (any failure exits non-zero; no error is caught):
    ``flash_attention`` against ``F.scaled_dot_product_attention`` (timed
    only; nothing on the path calls it) and one decode step with cuBLAS's
    reduced-precision bf16 reduction off and on. Its summary is the line
-   starting ``[9] {``.
+   starting ``[9] {``;
+10. the MLA, MoE, RG-LRU and xLSTM families at full width, one after the
+   other (``recurrentgemma-9b``, ``minicpm3-4b``, ``xlstm-350m``, and
+   ``moonshot-v1-16b-a3b`` cut to 16 of its 48 layers; plain PyTorch, no
+   TPU kernel on the path): (a) random weights from ``torch.Generator``
+   seed 0 on the card, served as a bf16 copy (the float32 masters
+   dropped), 8 requests of 16-64 prompt tokens and 16 new ones in one
+   batch: every answer 16 tokens, the prefill and each decode step under
+   CUDA events beside their bounds, tokens/s, batch latency, peak memory,
+   and no host synchronization in any decode step; (b) teacher forcing
+   within each family's bound measured on the CPU (the MoE family served
+   again without drops, since a router's capacity depends on the call's
+   token count); (c) the same float32 weights one block-pattern cycle deep
+   on the card and on the CPU: a prefill of the padded batch and four
+   decode steps within 1e-4, and for the MoE family the first layer's
+   expert choices and keep mask. Its summary is the line starting
+   ``[10] {``.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -284,6 +300,30 @@ LM_TEACHER_ATOL = 0.125
 LM_CARD_CPU = dict(n_layers=2, decode=4, rtol=1e-4, atol=1e-4)
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
 PEAK_BF16_S = 989e12
+# Phase 10, the MLA, MoE, RG-LRU and xLSTM families at full width, each in
+# turn: weights from torch.Generator seed 0 on the card, served in bf16 by
+# ServingEngine (the float32 masters dropped once cast); 8 requests of 16-64
+# prompt tokens (the first 8 of phase 9's) and 16 new tokens, one batch of
+# 8, max_seq 81. moonshot-v1-16b-a3b is cut to 16 of its 48 layers: its
+# float32 masters (104.5 GiB) do not fit the 80 GB card. Teacher forcing
+# holds the served bf16 logits against forward_train within each family's
+# bound, measured on the CPU at full width and the served depth
+# (tools/torch_lm_teacher_bound.py) before the first card run; the card
+# against the CPU in float32 at one block-pattern cycle (2 layers for the
+# single-block patterns) within rtol = atol = 1e-4.
+LM10_FAMILIES = {"recurrentgemma-9b": None, "minicpm3-4b": None, "xlstm-350m": None,
+                 "moonshot-v1-16b-a3b": 16}
+LM10_REQUESTS = 8
+# Teacher forcing on the CPU at full width and the served depth, MoE without
+# drops (tools/torch_lm_teacher_bound.py on the NVIDIA H100 80GB HBM3 host's
+# CPU, 8 threads, torch 2.11): the largest reading of seeds 0-2 on sound
+# runs, and the control at seed 0, the batch served with a cache that decode
+# never writes. The bound is twice the sound reading rounded up to 1/32; it
+# must lie below the control, or the check could not fail.
+LM10_TEACHER_CPU = {"recurrentgemma-9b": (0.236328125, 6.03125), "minicpm3-4b": (0.0859375, 1.431640625),
+                    "xlstm-350m": (0.13134765625, 6.21875), "moonshot-v1-16b-a3b": (0.38671875, 0.9228515625)}
+LM10_TEACHER_ATOL = {arch: math.ceil(64 * sound) / 32 for arch, (sound, _) in LM10_TEACHER_CPU.items()}
+LM10_CARD_CPU = dict(decode=4, rtol=1e-4, atol=1e-4)
 
 
 def log(*a):
@@ -2711,14 +2751,15 @@ def count_syncs(fn):
                     for w in caught)
 
 
-def lm_requests(vocab: int) -> list:
-    """Phase 9's prompts: lengths 16-64 and tokens from default_rng(0)."""
+def lm_requests(vocab: int, n: int = LM_REQUESTS, seed: int = 0) -> list:
+    """Phase 9's prompts (phase 10's are its first 8): lengths 16-64 and
+    tokens from default_rng(seed)."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     lo, hi = LM_PROMPT
     return [[int(t) for t in rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))]
-            for _ in range(LM_REQUESTS)]
+            for _ in range(n)]
 
 
 def lm_bounds(cfg, tokens: int, batch: int, cache_len: int) -> dict:
@@ -2861,16 +2902,16 @@ def lm_serve(dev, smi: str) -> dict:
                 mean_batch_latency_s=lat, decode_median_ms=statistics.median(dec))
 
 
-def lm_teacher_forcing(served: dict) -> dict:
-    """9b: forward_train over the first batch's prompts and answers against
-    the prefill / decode logits that served them."""
+def teacher_forcing(engine, done, logits, bound: float) -> dict:
+    """forward_train over the batch's prompts and answers against the
+    prefill / decode ``logits`` (B, new tokens, V) that served them: the
+    largest difference, and the tokens where the served top-1/top-2 margin
+    exceeds twice ``bound``."""
     import numpy as np
     import torch
 
     from repro_torch.models import forward_train
 
-    engine, done = served["engine"], served["done"][:LM_ENGINE["max_batch"]]
-    logits = torch.stack(served["timed"].logits[0], 1)  # (B, new tokens, V)
     lens = [len(r.tokens) for r in done]
     max_len = max(lens)
     toks = np.zeros((len(done), max_len + LM_NEW - 1), np.int32)
@@ -2878,19 +2919,32 @@ def lm_teacher_forcing(served: dict) -> dict:
         toks[i, max_len - lens[i]:max_len] = r.tokens
         toks[i, max_len:] = r.output[:-1]
     tf = forward_train(engine.model, {"tokens": toks})[0][:, max_len - 1:]
-    err = float((tf - logits).abs().max())
     top = torch.topk(logits, 2, -1).values
-    clear = (top[..., 0] - top[..., 1]) > 2 * LM_TEACHER_ATOL
+    clear = (top[..., 0] - top[..., 1]) > 2 * bound
     served_tok = torch.tensor([r.output for r in done], device=logits.device)
-    agree = bool(((tf.argmax(-1) == served_tok) | ~clear).all())
-    require(bool((logits.argmax(-1) == served_tok).all()), "[9b] the kept logits did not serve the tokens")
+    return dict(max_abs_err=float((tf - logits).abs().max()),
+                served=bool((logits.argmax(-1) == served_tok).all()),
+                agree=bool(((tf.argmax(-1) == served_tok) | ~clear).all()),
+                clear=int(clear.sum()), positions=clear.numel(), shape=toks.shape)
+
+
+def lm_teacher_forcing(served: dict) -> dict:
+    """9b: forward_train over the first batch's prompts and answers against
+    the prefill / decode logits that served them."""
+    import torch
+
+    done = served["done"][:LM_ENGINE["max_batch"]]
+    logits = torch.stack(served["timed"].logits[0], 1)  # (B, new tokens, V)
+    r = teacher_forcing(served["engine"], done, logits, LM_TEACHER_ATOL)
+    err = r["max_abs_err"]
+    require(r["served"], "[9b] the kept logits did not serve the tokens")
     require(err <= LM_TEACHER_ATOL, f"[9b] teacher forcing: max abs logit difference {err} > {LM_TEACHER_ATOL}")
-    require(agree, "[9b] teacher forcing picks another token where the margin exceeds twice the bound")
-    log(f"[9b] teacher forcing at full width, batch 0 ({len(done)} x {toks.shape[1]} tokens, bf16): "
+    require(r["agree"], "[9b] teacher forcing picks another token where the margin exceeds twice the bound")
+    log(f"[9b] teacher forcing at full width, batch 0 ({r['shape'][0]} x {r['shape'][1]} tokens, bf16): "
         f"max abs logit difference {err:.4f} (bound {LM_TEACHER_ATOL}); tokens equal at all "
-        f"{int(clear.sum())} of {clear.numel()} positions whose top-1/top-2 margin exceeds "
+        f"{r['clear']} of {r['positions']} positions whose top-1/top-2 margin exceeds "
         f"{2 * LM_TEACHER_ATOL}")
-    return dict(max_abs_err=err, clear=int(clear.sum()), positions=clear.numel())
+    return dict(max_abs_err=err, clear=r["clear"], positions=r["positions"])
 
 
 def lm_card_against_cpu(dev, smi: str) -> dict:
@@ -3037,6 +3091,338 @@ def phase9(dev, smi: str) -> dict:
         teacher_max_abs_err=teacher["max_abs_err"], card_cpu_max_abs_err=card_cpu["max_abs_err"], **yard)
     log(f"[9] {json.dumps(out)}")
     log(f"[9] phase wall time {time.perf_counter() - t9:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the MLA, MoE, RG-LRU and xLSTM families at full width.
+# ---------------------------------------------------------------------------
+
+def family_config(arch: str, dtype: str | None = None, n_layers: int | None = None):
+    """The family's registered config at full width, cut to the served depth
+    (``LM10_FAMILIES``) or to ``n_layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    over = {}
+    if n_layers or LM10_FAMILIES[arch]:
+        over["n_layers"] = n_layers or LM10_FAMILIES[arch]
+    if dtype:
+        over["dtype"] = dtype
+    return dataclasses.replace(cfg, **over)
+
+
+def family_bounds(cfg, tokens: int, batch: int) -> dict:
+    """Least time of a prefill of ``tokens`` prompt tokens in ``batch`` rows
+    and of one decode step of ``batch`` rows: the bf16 weights read once
+    over HBM bandwidth, against the matmul operations over the dense bf16
+    peak. The reference's MoE runs every expert over its capacity rows, so
+    those rows are counted; attention's score products are left out (under
+    1% at 81 positions)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    embed = v * d * (1 if cfg.tie_embeddings else 2)
+    n_moe = sum(t in ("attn", "local") for t in cfg.layer_types) if cfg.n_experts else 0
+    expert = 3 * d * f * cfg.n_experts * n_moe
+    dense = cfg.param_count() - embed - expert
+
+    def ops(t: int) -> int:
+        cap = int(max(cfg.top_k, t * cfg.top_k / cfg.n_experts * cfg.capacity_factor)) if n_moe else 0
+        return 2 * t * dense + 2 * 3 * d * f * cfg.n_experts * cap * n_moe + 2 * batch * d * v
+
+    nbytes = 2 * cfg.param_count()
+    out = {}
+    for name, n_ops in (("prefill", ops(tokens)), ("decode", ops(batch))):
+        t_ops, t_bytes = n_ops / PEAK_BF16_S * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        out[name] = dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+                         ops=n_ops, bytes=nbytes)
+    return out
+
+
+def family_serve(arch: str, dev, smi: str) -> dict:
+    """10a: ServingEngine at full width on the card, one batch of 8; every
+    decode step under set_sync_debug_mode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Transformer, decode_step, prefill
+    from repro_torch.serve.lm import EngineConfig, Request, ServingEngine
+
+    cfg = family_config(arch)
+    t0 = time.perf_counter()
+    masters = Transformer(cfg, LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    masters_gib = sum(p.numel() * p.element_size() for p in masters.parameters()) / 2**30
+    engine = ServingEngine(masters, EngineConfig(**LM_ENGINE), device=dev)
+    del masters  # the engine serves its own bf16 copy
+    torch.cuda.empty_cache()
+    prompts = lm_requests(cfg.vocab, LM10_REQUESTS)
+    # Warm-up, not timed: one request, two new tokens.
+    engine.submit(Request(rid=-1, tokens=prompts[0], max_new_tokens=2))
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = TimedEngineCalls(engine)
+    dec_syncs = []
+    inner = engine._decode
+
+    def counted(*a):
+        out, n = count_syncs(lambda: inner(*a))
+        dec_syncs.append(n)
+        return out
+
+    engine._decode = counted
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=LM_NEW) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine._decode = inner
+    peak = torch.cuda.max_memory_allocated()
+    tag = f"[10a] {arch}"
+    require(sorted(r.rid for r in done) == list(range(LM10_REQUESTS)), f"{tag}: served {len(done)} requests")
+    require(all(len(r.output) == LM_NEW and all(0 <= t < cfg.vocab for t in r.output) for r in done),
+            f"{tag}: every answer holds 16 tokens of the vocabulary")
+    (batch,) = timed.batches()
+    require(len(batch["decode_ms"]) == LM_NEW - 1, f"{tag}: {len(batch['decode_ms'])} decode calls")
+    require(dec_syncs == [0] * (LM_NEW - 1), f"{tag}: decode_step synchronized the host: {dec_syncs}")
+    lens = [len(r.tokens) for r in done]
+    bd = family_bounds(cfg, len(lens) * max(lens), len(lens))
+    dec = batch["decode_ms"]
+    # Where a decode step's time goes: the device's busy time and operations
+    # per step under the profiler, on the batch's own cache.
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for i, r in enumerate(done):
+        toks[i, max(lens) - lens[i]:] = r.tokens
+    _, cache = prefill(engine.model, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    nxt = {"tokens": torch.tensor([[r.output[0]] for r in done], device=dev)}
+    busy, n_ops = kernel_device_profile(lambda: decode_step(engine.model, nxt, cache, max(lens)), ("",),
+                                        iters=3)
+    del cache
+    n_tok = sum(len(r.output) for r in done)
+    lat = float(np.mean([r.batch_latency_s for r in done]))
+    log(f"{tag}: {cfg.n_layers} layers at full width ({cfg.param_count():,} parameters, bf16 served copy "
+        f"{2 * cfg.param_count() / 2**30:.2f} GiB; float32 masters {masters_gib:.2f} GiB made in {init_s:.2f} s, "
+        f"dropped); prompts {min(lens)}-{max(lens)} tokens (padded to {max(lens)}): prefill "
+        f"{batch['prefill_ms']:.3f} ms (bound {bd['prefill']['bound_ms']:.3f} ms, {bd['prefill']['bound_by']}); "
+        f"decode step median {statistics.median(dec):.3f} ms (min {min(dec):.3f}, max {max(dec):.3f}; bound "
+        f"{bd['decode']['bound_ms']:.3f} ms, {bd['decode']['bound_by']}); {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tokens/s, batch latency {lat * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated); host synchronizations {dec_syncs[0]} in each of {len(dec_syncs)} decode "
+        f"steps; under the profiler a decode step keeps the device busy {busy:.3f} ms in {n_ops:.0f} device "
+        f"operations ({busy / statistics.median(dec):.1%} of the median step) [{smi}]")
+    return dict(engine=engine, cfg=cfg, done=done, timed=timed, prefill_ms=batch["prefill_ms"],
+                decode_busy_ms=busy, decode_device_ops=n_ops,
+                decode_ms=dec, decode_median_ms=statistics.median(dec), tokens_per_s=n_tok / wall,
+                batch_latency_s=lat, peak_gib=peak / 2**30, masters_gib=masters_gib, init_s=init_s,
+                prefill_bound_ms=bd["prefill"]["bound_ms"], decode_bound_ms=bd["decode"]["bound_ms"])
+
+
+def served_logits(engine, prompts, stale_cache: bool = False) -> tuple[list, "torch.Tensor"]:
+    """Serves ``prompts`` (16 new tokens each) in one batch and keeps the
+    logits of each prefill / decode call: (requests, logits (B, 16, V)).
+    With ``stale_cache``, the control of 10b, every decode step reads a
+    copy of the cache as the prefill left it: a cache that decode never
+    writes."""
+    import torch
+
+    from repro_torch.serve.lm import Request
+
+    calls, logits, prefilled = (engine._prefill, engine._decode), [], []
+
+    def copy(cache):
+        return [{k: v.clone() for k, v in layer.items()} for layer in cache]
+
+    def pre(*a):
+        out = calls[0](*a)
+        logits.append(out[0])
+        prefilled[:] = [copy(out[1])] if stale_cache else []
+        return out
+
+    def dec(inputs, cache, position):
+        out = calls[1](inputs, copy(prefilled[0]) if stale_cache else cache, position)
+        logits.append(out[0])
+        return out
+
+    engine._prefill, engine._decode = pre, dec
+    try:
+        for i, p in enumerate(prompts):
+            engine.submit(Request(rid=i, tokens=p, max_new_tokens=LM_NEW))
+        done = engine.run_until_drained(budget_s=1e9)
+    finally:
+        engine._prefill, engine._decode = calls
+    return done, torch.stack(logits, 1)
+
+
+def no_drop(cfg):
+    """The config with a capacity every expert's load fits (E / k: capacity
+    >= tokens), so no MoE assignment is dropped: the reference's own teacher
+    forcing test raises the capacity factor for the same reason."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k) if cfg.n_experts else cfg
+
+
+def family_teacher_forcing(arch: str, served: dict) -> dict:
+    """10b: the served logits against forward_train within the family's
+    bound, measured on the CPU. A MoE router's capacity depends on how many
+    tokens a call holds (a prefill of 8 x 64, a decode step of 8, a forward
+    of 8 x 79), so the same token can be dropped in one and kept in the
+    other: for the MoE family the batch is served again without drops
+    (``no_drop``) and that is held to the bound; the served batch's own
+    difference is printed beside it. The control, the batch served with a
+    cache that decode never writes, must exceed the bound: the check can
+    fail."""
+    import torch
+
+    bound = LM10_TEACHER_ATOL[arch]
+    engine, cfg = served["engine"], served["cfg"]
+    done, logits = served["done"], torch.stack(served["timed"].logits[0], 1)  # (B, new tokens, V)
+    prompts = [r.tokens for r in done]
+    note = ""
+    if cfg.n_experts:
+        with_drops = teacher_forcing(engine, done, logits, bound)["max_abs_err"]
+        note = (f"; served again with capacity_factor {no_drop(cfg).capacity_factor:.4g} (no drop); the "
+                f"batch served at capacity_factor {cfg.capacity_factor} reads {with_drops:.4f} (not held)")
+    engine.model.cfg = no_drop(cfg)
+    try:
+        if cfg.n_experts:
+            done, logits = served_logits(engine, prompts)
+        r = teacher_forcing(engine, done, logits, bound)
+        control = teacher_forcing(engine, *served_logits(engine, prompts, stale_cache=True), bound)["max_abs_err"]
+    finally:
+        engine.model.cfg = cfg
+    tag = f"[10b] {arch}"
+    require(r["served"], f"{tag}: the kept logits did not serve the tokens")
+    require(r["max_abs_err"] <= bound, f"{tag}: teacher forcing: max abs logit difference {r['max_abs_err']} > {bound}")
+    require(r["agree"], f"{tag}: teacher forcing picks another token where the margin exceeds twice the bound")
+    require(control > bound, f"{tag}: the control (a cache decode never writes) reads {control}, within the bound "
+            f"{bound}: the check could not fail")
+    log(f"{tag}: teacher forcing ({r['shape'][0]} x {r['shape'][1]} tokens, bf16): max abs logit difference "
+        f"{r['max_abs_err']:.4f} (bound {bound}, measured on the CPU); tokens equal at all {r['clear']} of "
+        f"{r['positions']} positions whose top-1/top-2 margin exceeds {2 * bound}; the control, served with a "
+        f"cache that decode never writes, reads {control:.4f}" + note)
+    return dict(r, control_max_abs_err=control)
+
+
+class FirstRouting:
+    """Keeps the routing of the first MoE layer a prefill runs (the first
+    ``moe_route`` call while active)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.first = moe, moe.moe_route, None
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            r = self.route(*a, **kw)
+            if self.first is None:
+                self.first = r
+            return r
+
+        self.moe.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self.route
+
+
+def compare_routing(rg, rc, what: str, margin: float) -> str:
+    """The card's first-layer routing against the CPU's: expert choices
+    equal on every token whose k-th / (k+1)-th router margin exceeds
+    ``margin``; the keep mask equal on every assignment before the first
+    token whose choice differs (all of them when none does)."""
+    import torch
+
+    k = rc.experts.shape[1]
+    top = torch.sort(rc.probs, -1, descending=True).values
+    clear = (top[:, k - 1] - top[:, k]) > margin
+    differ = (rg.experts.cpu() != rc.experts).any(1)
+    require(not bool((differ & clear).any()), f"{what}: expert choices differ on a token with a clear margin")
+    upto = int(differ.nonzero()[0, 0]) * k if bool(differ.any()) else rc.keep.numel()
+    require(torch.equal(rg.keep.cpu()[:upto], rc.keep[:upto]), f"{what}: keep masks differ")
+    require(rg.capacity == rc.capacity, f"{what}: capacities differ")
+    return (f"first MoE layer: expert choices equal on {int(clear.sum())} of {clear.numel()} tokens with a "
+            f"clear margin ({int(differ.sum())} differ), keep equal on {upto} of {rc.keep.numel()} "
+            f"assignments ({int((~rc.keep).sum())} dropped), capacity {rc.capacity}")
+
+
+def family_card_against_cpu(arch: str, dev, smi: str) -> dict:
+    """10c: the same float32 weights at full width, one block-pattern cycle
+    deep (2 layers for single-block patterns), on the card and on the CPU:
+    a prefill of the padded batch of 8 and 4 decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, cast_weights, decode_step, prefill
+
+    plen = len(get_config(arch).block_pattern)
+    cfg = family_config(arch, "float32", plen if plen > 1 else 2)
+    c = LM10_CARD_CPU
+    gpu = Transformer(cfg, LM_SEED, device=dev)
+    cpu = cast_weights(gpu, torch.float32, "cpu")
+    prompts = lm_requests(cfg.vocab, LM10_REQUESTS)
+    max_len = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), max_len), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, max_len - len(p):] = p
+    tag = f"[10c] {arch}"
+    with FirstRouting() as rg_spy:
+        lg, cg = prefill(gpu, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    with FirstRouting() as rc_spy:
+        lc, cc = prefill(cpu, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    routing = ""
+    if cfg.n_experts:
+        routing = "; " + compare_routing(rg_spy.first, rc_spy.first, tag, c["atol"])
+    errs, clear, total = [], 0, 0
+    for step in range(c["decode"] + 1):
+        errs.append(close(lg, lc, f"{tag}: logits, step {step}", c["rtol"], c["atol"]))
+        top = torch.topk(lc, 2, -1).values
+        ok = (top[:, 0] - top[:, 1]) > 2 * (c["atol"] + c["rtol"] * top[:, 0].abs())
+        require(bool(((lg.argmax(-1).cpu() == lc.argmax(-1)) | ~ok).all()), f"{tag}: tokens differ, step {step}")
+        clear, total = clear + int(ok.sum()), total + ok.numel()
+        if step == c["decode"]:
+            break
+        nxt = {"tokens": lc.argmax(-1)[:, None].numpy()}  # the CPU's tokens feed both
+        lg, cg = decode_step(gpu, nxt, cg, max_len + step)
+        lc, cc = decode_step(cpu, nxt, cc, max_len + step)
+    log(f"{tag}: card against CPU at full width, {cfg.n_layers} layers ({', '.join(cfg.layer_types)}), "
+        f"float32, allow_tf32={torch.backends.cuda.matmul.allow_tf32}: prefill of {toks.shape} then "
+        f"{c['decode']} decode steps, max abs logit difference per step " + " ".join(f"{e:.2e}" for e in errs)
+        + f" (rtol = atol = {c['atol']}); tokens equal at {clear} of {total} rows with a clear margin"
+        + routing + f" [{smi}]")
+    return dict(max_abs_err=max(errs), errs=errs)
+
+
+def phase10(dev, smi: str) -> dict:
+    """Phase 10, the MLA, MoE, RG-LRU and xLSTM families at full width, on
+    the card with no error caught; each family's engine is dropped before
+    the next is made."""
+    import torch
+
+    t10 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    for arch in LM10_FAMILIES:
+        t = time.perf_counter()
+        served = family_serve(arch, dev, smi)
+        teacher = family_teacher_forcing(arch, served)
+        card_cpu = family_card_against_cpu(arch, dev, smi)
+        out[arch] = {k: v for k, v in served.items() if isinstance(v, (int, float))}
+        out[arch].update(teacher_max_abs_err=teacher["max_abs_err"],
+                         teacher_control_max_abs_err=teacher["control_max_abs_err"],
+                         card_cpu_max_abs_err=card_cpu["max_abs_err"],
+                         card_cpu_errs=card_cpu["errs"], wall_s=time.perf_counter() - t)
+        del served
+        torch.cuda.empty_cache()
+    log(f"[10] {json.dumps(out)}")
+    log(f"[10] phase wall time {time.perf_counter() - t10:.1f} s")
     return out
 
 
@@ -3204,6 +3590,9 @@ def main() -> int:
 
     # Phase 9: the LM serving path at Llama-3.2-1B's full width.
     phase9(dev, smi)
+
+    # Phase 10: the MLA, MoE, RG-LRU and xLSTM families at full width.
+    phase10(dev, smi)
 
     rows = []
     for name, r in kernels.items():

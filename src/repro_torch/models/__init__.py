@@ -1,8 +1,8 @@
 """The LM model zoo of the port: decoder-only transformers in plain PyTorch.
 
-Ported so far: the attention-only families (dense GQA transformers, the
-audio and VLM backbones with stubbed modality frontends). MLA, MoE,
-RG-LRU and xLSTM wait (ROADMAP item 9b).
+Every registered architecture: dense GQA transformers, MLA, MoE, the
+audio and VLM backbones with stubbed modality frontends, RG-LRU
+(RecurrentGemma) and xLSTM.
 """
 from repro_torch.models.transformer import (  # noqa: F401
     Transformer,

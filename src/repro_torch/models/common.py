@@ -7,6 +7,8 @@ weights, which cross over through ``transformer.params_from_jax``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,6 +38,13 @@ def dense_weight(generator: torch.Generator | None, d_in: int, d_out: int, *, de
     return nn.Parameter(w, requires_grad=False)
 
 
+def frozen_param(t: torch.Tensor | None, shape, device=None, dtype=torch.float32) -> nn.Parameter:
+    """A frozen parameter holding ``t``, or uninitialised in ``dtype`` on
+    ``device`` when there is none (weights that are copied in afterwards)."""
+    return nn.Parameter(t if t is not None else torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in float32, cast back to ``x``'s dtype (``scale`` stays
     float32)."""
@@ -43,6 +52,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     x = x.float()
     var = (x * x).mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * scale).to(dtype)
+
+
+def causal_conv(p: nn.Module, u: torch.Tensor, state: torch.Tensor | None = None):
+    """The RG-LRU and mLSTM blocks' short causal conv along time, in
+    ``u``'s dtype, with ``p``'s ``conv_w`` (W, D) and ``conv_b`` (D). u: (B,
+    S, D); state: (B, W-1, D), the last W-1 inputs before ``u`` (zeros
+    without one). Returns the output and the new state, the last W-1
+    inputs."""
+    w, s = p.conv_w.shape[0], u.shape[1]
+    pad = u.new_zeros((u.shape[0], w - 1, u.shape[2])) if state is None else state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)  # (B, S+W-1, D)
+    out = full[:, 0:s] * p.conv_w[0].to(u.dtype)
+    for i in range(1, w):
+        out = out + full[:, i:i + s] * p.conv_w[i].to(u.dtype)
+    return out + p.conv_b.to(u.dtype), (full[:, -(w - 1):] if w > 1 else pad)
 
 
 # ---------------------------------------------------------------------------
@@ -104,8 +128,19 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
 # Gated FFN (SwiGLU / GeGLU).
 # ---------------------------------------------------------------------------
 
-# jax.nn.gelu defaults to the tanh approximation.
-_ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}
+@functools.lru_cache(maxsize=None)
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX's weak typing makes it against an array of
+    ``dtype``: rounded to that dtype."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+_ACT = {"silu": F.silu, "gelu": gelu}
 
 
 class FFN(nn.Module):

@@ -1,12 +1,15 @@
 """Decoder-only model assembly: the port of ``repro.models.transformer``
-for the attention-only families.
+for every registered architecture.
 
-The block types ``"attn"`` and ``"local"`` without MLA and without
-experts are ported; that covers ``llama3.2-1b``, ``stablelm-3b`` and
-``deepseek-67b`` (dense), ``musicgen-large`` (audio: embeddings in,
-sinusoidal positions) and ``qwen2-vl-2b`` (vlm: embeddings in, M-RoPE).
-MLA, MoE, RG-LRU and xLSTM blocks raise ``NotImplementedError``
-(ROADMAP item 9b).
+Block types: ``"attn"`` and ``"local"`` (GQA attention, or MLA where the
+config says ``use_mla``), ``"rglru"`` (the Griffin recurrent block),
+``"mlstm"`` and ``"slstm"`` (xLSTM); attention and RG-LRU blocks carry a
+gated FFN, or a top-k MoE where the config has experts. That covers the
+dense families (``llama3.2-1b``, ``stablelm-3b``, ``deepseek-67b``,
+``minicpm3-4b`` with MLA), the MoE ones (``moonshot-v1-16b-a3b``,
+``phi3.5-moe-42b-a6.6b``), ``musicgen-large`` (audio: embeddings in,
+sinusoidal positions), ``qwen2-vl-2b`` (vlm: embeddings in, M-RoPE),
+``recurrentgemma-9b`` and ``xlstm-350m``.
 
 The reference scans stacked cycle parameters; the port runs an
 ``nn.ModuleList`` of layers in order, which is the same arithmetic, and
@@ -14,14 +17,16 @@ keeps one decode-cache layout, a list of per-layer caches. Weights keep
 the reference's ``(d_in, d_out)`` orientation (``x @ w``) and are float32
 masters cast to the config's dtype at each use, as there;
 :func:`cast_weights` makes a copy cast once (the serving engine's), which
-gives the same bits. ``params_from_jax`` / ``params_to_numpy`` and
-``cache_from_jax`` / ``cache_to_numpy`` carry weights and decode caches
-across the two packages.
+gives the same bits: every parameter the reference reads in float32 (the
+norm scales, the MoE router, the RG-LRU ``log_lambda``, the mLSTM gate
+biases) stays float32 in the copy. ``params_from_jax`` / ``params_to_numpy``
+and ``cache_from_jax`` / ``cache_to_numpy`` carry weights and decode
+caches across the two packages.
 
 Three entry points, matching the shape kinds:
-  forward_train  — full causal forward, logits + MoE aux loss (0 here)
+  forward_train  — full causal forward, logits + MoE aux loss
   prefill        — forward + decode-cache construction
-  decode_step    — one token against the cache
+  decode_step    — one token against the cache/recurrent state
 
 Inputs are a dict: {"tokens": (B, S) integer} or, for stubbed-frontend
 archs (audio/vlm), {"embeds": (B, S, d)}; VLM adds "mrope_positions"
@@ -39,6 +44,10 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 from repro_torch.models.common import (
     FFN,
     dense_weight,
@@ -48,7 +57,10 @@ from repro_torch.models.common import (
     truncated_normal_init,
 )
 
-Cache = list  # one {"k", "v", "pos"} dict a layer
+# One dict a layer: {"k", "v", "pos"} (attention), {"c_kv", "k_rope", "pos"}
+# (MLA), {"h", "conv"} (RG-LRU), {"c", "n", "m", "conv"} (mLSTM) or
+# {"h", "c", "n", "m"} (sLSTM).
+Cache = list
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -66,30 +78,37 @@ def _split_layers(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer: ``norm1``, the attention weights ``inner`` and, where
-    ``d_ff > 0``, ``norm2`` and the gated FFN ``ffn``."""
+    """One layer: ``norm1``, the mixer ``inner`` (attention, MLA, RG-LRU,
+    mLSTM or sLSTM) and, for attention and RG-LRU blocks where ``d_ff >
+    0``, ``norm2`` and the gated FFN ``ffn`` or the experts ``moe``."""
 
     def __init__(self, cfg: ModelConfig, bt: str, generator: torch.Generator | None = None, *,
                  device=None, dtype=torch.float32):
         super().__init__()
-        if bt in ("rglru", "mlstm", "slstm"):
-            raise NotImplementedError(
-                f"block type {bt!r} is not ported yet (ROADMAP item 9b: the RG-LRU and xLSTM families)")
-        if bt not in ("attn", "local"):
-            raise ValueError(bt)
-        if cfg.use_mla:
-            raise NotImplementedError("MLA attention is not ported yet (ROADMAP item 9b)")
-        if cfg.n_experts:
-            raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP item 9b)")
         self.bt = bt
         self.window = cfg.local_window if bt == "local" else None
         d = cfg.d_model
+        kw = dict(device=device, dtype=dtype)
         self.norm1 = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
-        self.inner = A.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, generator,
-                                 device=device, dtype=dtype)
-        if cfg.d_ff:
+        if bt in ("attn", "local") and cfg.use_mla:
+            self.inner = MLA.MLA(d, cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_dim,
+                                 cfg.qk_rope_dim, cfg.v_head_dim, generator, **kw)
+        elif bt in ("attn", "local"):
+            self.inner = A.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, generator, **kw)
+        elif bt == "rglru":
+            self.inner = RG.RGLRU(d, cfg.lru_width or d, cfg.conv_width, generator, **kw)
+        elif bt == "mlstm":
+            self.inner = XL.MLSTM(d, cfg.n_heads, generator, **kw)
+        elif bt == "slstm":
+            self.inner = XL.SLSTM(d, cfg.n_heads, generator, **kw)
+        else:
+            raise ValueError(bt)
+        if bt in ("attn", "local", "rglru") and cfg.d_ff:
             self.norm2 = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
-            self.ffn = FFN(d, cfg.d_ff, generator, device=device, dtype=dtype)
+            if cfg.n_experts:
+                self.moe = MOE.MoE(d, cfg.d_ff, cfg.n_experts, generator, **kw)
+            else:
+                self.ffn = FFN(d, cfg.d_ff, generator, **kw)
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, bt: str) -> Block:
@@ -109,31 +128,71 @@ def _attn_dims(cfg: ModelConfig) -> dict[str, int]:
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim)
 
 
-def _ffn_part(lp: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mla_dims(cfg: ModelConfig) -> dict[str, int]:
+    return dict(n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                v_head_dim=cfg.v_head_dim, kv_lora_rank=cfg.kv_lora_rank)
+
+
+def _ffn_part(lp: Block, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The FFN or MoE half of a layer: (x, the MoE aux loss or None)."""
+    if hasattr(lp, "moe"):
+        out = MOE.moe_apply(lp.moe, rmsnorm(x, lp.norm2, cfg.norm_eps), n_experts=cfg.n_experts,
+                            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + out.y, out.aux_loss
     if hasattr(lp, "ffn"):
         x = x + ffn_apply(lp.ffn, rmsnorm(x, lp.norm2, cfg.norm_eps), cfg.act)
-    return x
+    return x, None
 
 
-def apply_layer_train(lp: Block, x, *, cfg: ModelConfig, positions, pos_cfg) -> torch.Tensor:
+def apply_layer_train(lp: Block, x, *, cfg: ModelConfig, positions, pos_cfg):
+    """(x, MoE aux loss or None) after one layer of the causal forward."""
     h = rmsnorm(x, lp.norm1, cfg.norm_eps)
-    x = x + A.attention_apply(lp.inner, h, **_attn_dims(cfg), positions=positions,
-                              pos_cfg=pos_cfg, window=lp.window)
-    return _ffn_part(lp, x, cfg)
+    if lp.bt in ("attn", "local") and cfg.use_mla:
+        y = MLA.mla_apply(lp.inner, h, dims=_mla_dims(cfg), positions=positions, theta=cfg.rope_theta)
+    elif lp.bt in ("attn", "local"):
+        y = A.attention_apply(lp.inner, h, **_attn_dims(cfg), positions=positions, pos_cfg=pos_cfg,
+                              window=lp.window)
+    elif lp.bt == "rglru":
+        y = RG.rglru_apply(lp.inner, h)
+    elif lp.bt == "mlstm":
+        y = XL.mlstm_apply(lp.inner, h, n_heads=cfg.n_heads)
+    else:
+        y = XL.slstm_apply(lp.inner, h, n_heads=cfg.n_heads)
+    return _ffn_part(lp, x + y, cfg)
 
 
 def apply_layer_prefill(lp: Block, x, *, cfg: ModelConfig, positions, pos_cfg, cache_len: int):
     h = rmsnorm(x, lp.norm1, cfg.norm_eps)
-    y, cache = A.attention_prefill(lp.inner, h, **_attn_dims(cfg), positions=positions,
-                                   pos_cfg=pos_cfg, window=lp.window, cache_len=cache_len)
-    return _ffn_part(lp, x + y, cfg), cache
+    if lp.bt in ("attn", "local") and cfg.use_mla:
+        y, cache = MLA.mla_prefill(lp.inner, h, dims=_mla_dims(cfg), positions=positions,
+                                   theta=cfg.rope_theta, cache_len=cache_len)
+    elif lp.bt in ("attn", "local"):
+        y, cache = A.attention_prefill(lp.inner, h, **_attn_dims(cfg), positions=positions,
+                                       pos_cfg=pos_cfg, window=lp.window, cache_len=cache_len)
+    elif lp.bt == "rglru":
+        y, cache = RG.rglru_apply(lp.inner, h, return_state=True)
+    elif lp.bt == "mlstm":
+        y, cache = XL.mlstm_apply(lp.inner, h, n_heads=cfg.n_heads, return_state=True)
+    else:
+        y, cache = XL.slstm_apply(lp.inner, h, n_heads=cfg.n_heads, return_state=True)
+    return _ffn_part(lp, x + y, cfg)[0], cache
 
 
 def apply_layer_decode(lp: Block, x, cache, position: int, *, cfg: ModelConfig, pos_cfg):
     h = rmsnorm(x, lp.norm1, cfg.norm_eps)
-    y, cache = A.attention_decode(lp.inner, h, cache, position, **_attn_dims(cfg),
-                                  pos_cfg=pos_cfg, window=lp.window)
-    return _ffn_part(lp, x + y, cfg), cache
+    if lp.bt in ("attn", "local") and cfg.use_mla:
+        y, cache = MLA.mla_decode(lp.inner, h, cache, position, dims=_mla_dims(cfg),
+                                  theta=cfg.rope_theta)
+    elif lp.bt in ("attn", "local"):
+        y, cache = A.attention_decode(lp.inner, h, cache, position, **_attn_dims(cfg),
+                                      pos_cfg=pos_cfg, window=lp.window)
+    elif lp.bt == "rglru":
+        y, cache = RG.rglru_decode(lp.inner, h, cache)
+    elif lp.bt == "mlstm":
+        y, cache = XL.mlstm_decode(lp.inner, h, cache, n_heads=cfg.n_heads)
+    else:
+        y, cache = XL.slstm_decode(lp.inner, h, cache, n_heads=cfg.n_heads)
+    return _ffn_part(lp, x + y, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +205,10 @@ class Transformer(nn.Module):
 
     ``seed`` draws every weight from one ``torch.Generator`` on the device;
     ``seed=None`` leaves them uninitialised (for :func:`params_from_jax`
-    and :func:`cast_weights`). ``weight_dtype`` is the dtype of the dense
-    weights; the norm scales are float32 always. Runs on the card unless
-    ``device="cpu"``.
+    and :func:`cast_weights`). ``weight_dtype`` is the dtype of the
+    weights; those the reference reads in float32 (the norm scales, the MoE
+    router, ``log_lambda``, the mLSTM gate biases) are float32 always. Runs
+    on the card unless ``device="cpu"``.
     """
 
     def __init__(self, cfg: ModelConfig, seed: int | None = 0, *, device="cuda",
@@ -179,9 +239,10 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Transformer:
 
 
 def cast_weights(model: Transformer, dtype: torch.dtype | None = None, device=None) -> Transformer:
-    """A copy of ``model`` with every dense weight cast once to ``dtype``
-    (the config's by default) on ``device`` (the model's by default); the
-    norm scales stay float32. The forward casts each weight to the
+    """A copy of ``model`` with every weight cast once to ``dtype`` (the
+    config's by default) on ``device`` (the model's by default), except
+    those the reference reads in float32, which stay float32 (see
+    :class:`Transformer`). The forward casts every other weight to the
     activation dtype at use, so the copy computes the same bits as the
     float32 masters."""
     dtype = _dtype(model.cfg) if dtype is None else dtype
@@ -220,9 +281,13 @@ def _embed_inputs(model: Transformer, inputs: dict, cfg: ModelConfig):
     return x, positions
 
 
-def _mrope(inputs: dict, dev):
+def _mrope(inputs: dict, positions: torch.Tensor):
+    """The inputs' (3, B, S) M-RoPE positions; without them (a text prompt,
+    as the serving engine sends) t = h = w = position, as ``decode_step``
+    continues text. The reference's engine cannot serve ``qwen2-vl-2b``
+    from tokens (its ``_embed_inputs`` asks for ``"embeds"``)."""
     m = inputs.get("mrope_positions")
-    return None if m is None else _tensor(m, dev)
+    return positions[None].expand(3, *positions.shape) if m is None else _tensor(m, positions.device)
 
 
 def _logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -237,14 +302,18 @@ def _logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 @torch.no_grad()
 def forward_train(model: Transformer, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward. Returns (logits float32 (B, S, V), moe_aux
-    scalar: 0, no expert layer is ported). The forward only: the backward
-    and the reference's ``remat`` wait with training (ROADMAP item 9c)."""
+    float32 scalar: the MoE layers' aux losses summed in layer order, 0
+    without experts). The forward only: the backward and the reference's
+    ``remat`` wait with training (ROADMAP item 9c)."""
     cfg = model.cfg
     x, positions = _embed_inputs(model, inputs, cfg)
-    pos_cfg = _pos_cfg(cfg, _mrope(inputs, model.device))
+    pos_cfg = _pos_cfg(cfg, _mrope(inputs, positions))
+    aux = torch.zeros((), device=model.device)
     for lp in model.layers:
-        x = apply_layer_train(lp, x, cfg=cfg, positions=positions, pos_cfg=pos_cfg)
-    return _logits(model, x, cfg), torch.zeros((), device=model.device)
+        x, a = apply_layer_train(lp, x, cfg=cfg, positions=positions, pos_cfg=pos_cfg)
+        if a is not None:
+            aux = aux + a
+    return _logits(model, x, cfg), aux
 
 
 @torch.no_grad()
@@ -252,7 +321,7 @@ def prefill(model: Transformer, inputs: dict, *, cache_len: int | None = None) -
     """Forward + cache. Returns (last-position logits (B, V), cache)."""
     cfg = model.cfg
     x, positions = _embed_inputs(model, inputs, cfg)
-    pos_cfg = _pos_cfg(cfg, _mrope(inputs, model.device))
+    pos_cfg = _pos_cfg(cfg, _mrope(inputs, positions))
     clen = cache_len if cache_len is not None else x.shape[1]
     cache = []
     for lp in model.layers:
@@ -291,11 +360,19 @@ def decode_step(model: Transformer, inputs: dict, cache: Cache, position) -> tup
 # ---------------------------------------------------------------------------
 
 def _layer_cache(cfg: ModelConfig, bt: str, b: int, cache_len: int, dt, device) -> dict:
-    if bt not in ("attn", "local") or cfg.use_mla:
-        raise NotImplementedError(f"no decode cache for block type {bt!r} yet (ROADMAP item 9b)")
-    window = cfg.local_window if bt == "local" else None
-    return A.init_attn_cache(b, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
-                             window=window, device=device)
+    if bt in ("attn", "local") and cfg.use_mla:
+        return MLA.init_mla_cache(b, cache_len, cfg.kv_lora_rank, cfg.qk_rope_dim, dt, device=device)
+    if bt in ("attn", "local"):
+        window = cfg.local_window if bt == "local" else None
+        return A.init_attn_cache(b, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
+                                 window=window, device=device)
+    if bt == "rglru":
+        return RG.init_rglru_state(b, cfg.lru_width or cfg.d_model, cfg.conv_width, device=device)
+    if bt == "mlstm":
+        return XL.init_mlstm_state(b, cfg.d_model, cfg.n_heads, device=device)
+    if bt == "slstm":
+        return XL.init_slstm_state(b, cfg.d_model, device=device)
+    raise ValueError(bt)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -> Cache:

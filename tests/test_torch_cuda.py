@@ -31,7 +31,10 @@ the ragged wire equal its scan. The frame oracle equals the event route
 on the card bit for bit; the atlas event core writes the CPU's atlas
 across forced tag rollovers, and its atlas update synchronizes nothing
 with the host; ``window_entropy`` on real reconstructed frames agrees
-with the frame oracle's entropies and contrast. The adversarial inputs
+with the frame oracle's entropies and contrast. The LM models (the
+attention families and the reduced MLA, MoE, RG-LRU and xLSTM ones) in
+float32 equal the CPU's within rtol = atol = 1e-4, serve the CPU's tokens,
+and make no host synchronization in a decode step. The adversarial inputs
 come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
 are shared with ``test_torch_kernels.py``.
 """
@@ -1079,3 +1082,89 @@ def test_lm_engine_step_on_card_equals_cpu(cuda_dev):
     assert outs["cuda"] == outs["cpu"] and all(len(o) == 6 for o in outs["cuda"])
     assert decode_syncs == [0] * 5, decode_syncs
     assert 6 <= total <= 6 + 2, total
+
+
+# The reduced LM families: the tiny preset (MoE, MLA and LRU widths cut as
+# ``reduced_config`` cuts them) at a depth that holds every block type of
+# the pattern (RG-LRU's local attention, xLSTM's sLSTM).
+LM_FAMILIES = {"minicpm3-4b": 2, "moonshot-v1-16b-a3b": 2, "phi3.5-moe-42b-a6.6b": 2,
+               "recurrentgemma-9b": 3, "xlstm-350m": 8}
+
+
+def _family_pair(cuda_dev, arch):
+    import dataclasses
+
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import init_params, params_from_jax, params_to_numpy
+
+    cfg = dataclasses.replace(reduced_config(arch, "tiny"), n_layers=LM_FAMILIES[arch])
+    cpu = init_params(0, cfg, device="cpu")
+    return cfg, cpu, params_from_jax(params_to_numpy(cpu), cfg, device=cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(LM_FAMILIES))
+def test_lm_family_reduced_model_on_card_equals_cpu(cuda_dev, arch):
+    """A reduced model of each MLA, MoE, RG-LRU and xLSTM family in float32
+    on the card against the CPU (TF32 off): forward and its MoE aux loss, a
+    prefill of a left-padded batch and three decode steps within rtol =
+    atol = 1e-4; the first MoE layer's expert choices and keep mask equal
+    on the same input."""
+    from repro_torch.models import decode_step, forward_train, prefill
+    from repro_torch.models.moe import moe_route
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _family_pair(cuda_dev, arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4, 11)).astype(np.int32)
+    toks[:2, :4] = 0  # left padding, unmasked as in the reference
+    (lg, ag), (lc, ac) = forward_train(gpu, {"tokens": toks}), forward_train(cpu, {"tokens": toks})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ag.cpu(), ac, rtol=1e-4, atol=1e-4)
+    lg, cg = prefill(gpu, {"tokens": toks[:, :8]}, cache_len=12)
+    lc, cc = prefill(cpu, {"tokens": toks[:, :8]}, cache_len=12)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        step = {"tokens": toks[:, 8 + i:9 + i]}
+        (lg, cg), (lc, cc) = decode_step(gpu, step, cg, 8 + i), decode_step(cpu, step, cc, 8 + i)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    if cfg.n_experts:
+        x = torch.from_numpy(rng.standard_normal((44, cfg.d_model)).astype(np.float32))
+        kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k, capacity_factor=0.5)
+        rg = moe_route(gpu.layers[0].moe.router, x.to(cuda_dev), **kw)
+        rc = moe_route(cpu.layers[0].moe.router, x, **kw)
+        assert torch.equal(rg.experts.cpu(), rc.experts) and torch.equal(rg.keep.cpu(), rc.keep)
+        assert not bool(rc.keep.all())  # capacity 0.5 drops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(LM_FAMILIES))
+def test_lm_family_engine_step_on_card_equals_cpu(cuda_dev, arch):
+    """One ``ServingEngine`` step of each reduced family on the card and on
+    the CPU (fake clock, mixed prompt lengths): the same tokens, and no
+    decode step synchronizes the host (MoE routing and MLA's cache write
+    read nothing back)."""
+    from repro_torch.serve.lm import EngineConfig, Request, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _family_pair(cuda_dev, arch)
+    ecfg = EngineConfig(max_batch=3, max_seq=20)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)] for n in (5, 9, 3)]
+    outs, decode_syncs = {}, []
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, cuda_dev)):
+        eng = ServingEngine(model, ecfg, lambda: 0.0, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=6))
+        if name == "cuda":
+            inner = eng._decode
+
+            def counted(*a, inner=inner):
+                out, n = _count_syncs(lambda: inner(*a))
+                decode_syncs.append(n)
+                return out
+
+            eng._decode = counted
+        outs[name] = [r.output for r in eng.step()]
+    assert outs["cuda"] == outs["cpu"] and all(len(o) == 6 for o in outs["cuda"])
+    assert decode_syncs == [0] * 5, decode_syncs

@@ -45,6 +45,8 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.llama3_2_1b",
               "repro_torch.configs.xlstm_350m", "repro_torch.models", "repro_torch.models.common",
               "repro_torch.models.attention", "repro_torch.models.transformer",
+              "repro_torch.models.mla", "repro_torch.models.moe", "repro_torch.models.rglru",
+              "repro_torch.models.xlstm",
               "repro_torch.serve.lm", "repro_torch.serve.engine", "repro_torch.launch",
               "repro_torch.launch.serve", "repro_torch.launch.train"):
         assert m in mods, m
@@ -159,10 +161,26 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: ServingEngine(cpu_model),
         lambda: serve_demo(),
         lambda: serve_demo(arch="qwen2-vl-2b", n_requests=2),
+        *(lambda a=a: init_params(0, reduced_config(a, "tiny")) for a in (
+            "minicpm3-4b", "moonshot-v1-16b-a3b", "recurrentgemma-9b", "xlstm-350m")),
+        lambda: init_cache(reduced_config("xlstm-350m", "tiny"), 2, 8),
+        lambda: serve_demo(arch="recurrentgemma-9b", n_requests=2),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("tool", [["torch_lm_teacher_bound.py"], ["torch_lm_phase.py", "10"]])
+def test_lm_tools_refuse_without_a_card(tool):
+    """The LM tools run on the card unless told otherwise: with no
+    ``--device`` and no card they exit non-zero before measuring."""
+    _no_card()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, str(REPO / "tools" / tool[0]), *tool[1:]], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode != 0
+    assert "cuda" in out.stderr.lower() and "{" not in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

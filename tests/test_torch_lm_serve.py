@@ -24,8 +24,10 @@ import torch
 from repro.launch.train import reduced_config as ref_reduced_config
 from repro.models.transformer import init_params as ref_init_params
 from repro.serve import lm as RL
+from repro_torch.configs import list_archs
 from repro_torch.launch.serve import serve_demo
 from repro_torch.launch.train import PRESETS, reduced_config
+from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.serve import lm as TL
 
@@ -105,8 +107,15 @@ def _serve_both(arch, ecfg, lens, max_new, arrivals, seed=0):
     return [b for b in rb if b], [b for b in tb if b], teng
 
 
-@pytest.mark.parametrize("case", ["mixed_lengths", "eos", "past_max_seq"])
-def test_engine_serves_the_reference_tokens(case):
+@pytest.mark.parametrize("case", ["mixed_lengths", "eos", "past_max_seq",
+                                  "mixed_lengths_recurrentgemma-9b",
+                                  "mixed_lengths_moonshot-v1-16b-a3b"])
+def test_engine_serves_the_reference_tokens(case, monkeypatch):
+    """Left-padded batches of mixed lengths (pad tokens reach MoE routers
+    as real tokens and take capacity, as in the reference), an
+    end-of-sequence token, positions past the cache; ``llama3.2-1b``, and
+    the reduced RG-LRU and MoE families."""
+    arch = case.split("_", 2)[2] if case.startswith("mixed_lengths_") else "llama3.2-1b"
     lens = [5, 9, 3, 12, 7, 4, 8]
     max_new = [6, 6, 4, 6, 2, 6, 5]
     arrivals = [0.0, 0.001, 0.002, 0.030, 0.031, 0.032, 0.033]
@@ -119,7 +128,13 @@ def test_engine_serves_the_reference_tokens(case):
         ecfg = TL.EngineConfig(max_delay_s=0.02, max_batch=3, max_seq=20,
                                eos_token=theirs[0][0].output[2])
     rcfg = RL.EngineConfig(**vars(ecfg))
-    ref, port, teng = _serve_both("llama3.2-1b", rcfg, lens, max_new, arrivals)
+    drops = []
+    route = TMOE.moe_route
+    monkeypatch.setattr(TMOE, "moe_route", lambda *a, **kw: (
+        lambda r: (drops.append(int((~r.keep).sum())), r)[1])(route(*a, **kw)))
+    ref, port, teng = _serve_both(arch, rcfg, lens, max_new, arrivals)
+    if "moonshot" in arch:  # the left-padded prefills drop assignments, as the reference's
+        assert sum(drops) > 0, drops
     assert [[r.rid for r in b] for b in port] == [[r.rid for r in b] for b in ref]
     assert [[r.rid for r in b] for b in port] == [[0, 1, 2], [3, 4, 5], [6]]
     for bp, br in zip(port, ref):
@@ -195,6 +210,14 @@ def test_serving_engine_generates():
                           "mean_batch_latency_s"}
 
 
+@pytest.mark.parametrize("arch", list_archs())
+def test_serve_demo_serves_every_architecture(arch):
+    """``serve_demo`` on the tiny preset of each of the ten architectures,
+    the MLA, MoE, RG-LRU and xLSTM families included."""
+    stats = serve_demo(arch=arch, n_requests=4, prompt_len=6, max_new=3, max_batch=4, device="cpu")
+    assert stats["requests"] == 4 and stats["tokens_generated"] == 12
+
+
 def test_presets_and_reduced_config_equal_reference():
     import dataclasses
 
@@ -258,3 +281,52 @@ print("shim warns")
 """
     )
     assert "shim warns" in out
+
+
+def test_phase10_models_and_decode_bounds():
+    """``chip_smoke.py`` phase 10's models: the four families at full width,
+    moonshot cut to 16 of 48 layers, and each decode step's bound (bf16
+    weight bytes over 3.35 TB/s, the operations of batch 8 far below)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as C
+
+    want = {"recurrentgemma-9b": (38, 6.236), "minicpm3-4b": (62, 2.544), "xlstm-350m": (24, 0.315),
+            "moonshot-v1-16b-a3b": (16, 5.851)}
+    assert list(C.LM10_FAMILIES) == list(want)
+    for arch, (layers, ms) in want.items():
+        cfg = C.family_config(arch)
+        assert cfg.n_layers == layers and cfg.d_model == reduced_config(arch, None).d_model
+        bd = C.family_bounds(cfg, 8 * 64, 8)
+        assert round(bd["decode"]["bound_ms"], 3) == ms and bd["decode"]["bound_by"] == "bytes", arch
+        sound, control = C.LM10_TEACHER_CPU[arch]
+        assert 2 * sound <= C.LM10_TEACHER_ATOL[arch] < min(2 * sound + 1 / 32, control), arch
+    # The MoE family's teacher forcing runs without drops: capacity >= tokens.
+    cfg = C.no_drop(C.family_config("moonshot-v1-16b-a3b"))
+    assert int(cfg.top_k / cfg.n_experts * cfg.capacity_factor * 8) == 8
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "minicpm3-4b", "xlstm-350m", "moonshot-v1-16b-a3b"])
+def test_phase10_teacher_forcing_and_its_control(arch):
+    """Phase 10b's check on the CPU at the ``tiny`` preset in bf16: the
+    served logits equal ``forward_train``'s to a few bf16 ULPs, and the
+    control, the batch served with a cache that decode never writes,
+    reads far more (the check can fail). The control's decode steps read
+    the prompt's cache and not the tokens served since; its prefill
+    logits are the sound ones."""
+    import dataclasses
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as C
+
+    cfg = C.no_drop(dataclasses.replace(reduced_config(arch, "tiny"), dtype="bfloat16"))
+    engine = TL.ServingEngine(TT.init_params(0, cfg, device="cpu"), TL.EngineConfig(**C.LM_ENGINE), device="cpu")
+    prompts = [p[:12] for p in C.lm_requests(cfg.vocab, 4)]
+    done, logits = C.served_logits(engine, prompts)
+    sound = C.teacher_forcing(engine, done, logits, 0.0)
+    assert sound["served"] and logits.shape == (4, C.LM_NEW, cfg.vocab)
+    cdone, clogits = C.served_logits(engine, prompts, stale_cache=True)
+    control = C.teacher_forcing(engine, cdone, clogits, 0.0)
+    assert control["served"]
+    assert torch.equal(clogits[:, 0], logits[:, 0])
+    assert sound["max_abs_err"] <= 0.125
+    assert control["max_abs_err"] > 4 * max(sound["max_abs_err"], 2 ** -7), (sound, control)
