@@ -137,6 +137,25 @@ Phases (any failure exits non-zero; no error is caught):
    decode steps within 1e-4, and for the MoE family the first layer's
    expert choices and keep mask. Its summary is the line starting
    ``[10] {``.
+11. LM training at Llama-3.2-1B's full width and the paged decode (plain
+   PyTorch; no TPU kernel lies on the path): (a) phase 9's first batch
+   through ``decode_step`` on caches with a hot page of 4 slots
+   (``transformer.PAGED_DECODE``), every layer flushed
+   (``attention.flush_page``) each 4 steps: teacher forcing within 0.125,
+   no host synchronization in a paged step or a flush, the paged and the
+   dense decode step timed on the same tokens, and depth 2 in float32 on
+   the card and the CPU within 1e-4; (b) ``launch/train.py:train`` at full
+   width (float32 masters, bf16 compute, batch 8 x seq 128, 20 steps):
+   losses finite and falling, every parameter moved; the step under CUDA
+   events and the profiler beside its bound, peak memory, and a step with
+   ``remat=True`` (its loss equal to the step's without); (c) one train
+   step at depth 2 in float32 on the card and the CPU: loss, gradient norm
+   and every updated parameter within 1e-4; (d) ``ElasticRunner`` over the
+   tiny preset's train step: a node lost and a NaN injected, the final
+   parameters against an uninterrupted run's, a card checkpoint restored
+   on the CPU leaf for leaf; (e) ``examples/torch_train_lm.py``'s default
+   run (small100m, 300 steps), a loss drop over 0.05. Its summary is the
+   line starting ``[11] {``.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -173,6 +192,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -324,6 +344,24 @@ LM10_TEACHER_CPU = {"recurrentgemma-9b": (0.236328125, 6.03125), "minicpm3-4b": 
                     "xlstm-350m": (0.13134765625, 6.21875), "moonshot-v1-16b-a3b": (0.38671875, 0.9228515625)}
 LM10_TEACHER_ATOL = {arch: math.ceil(64 * sound) / 32 for arch, (sound, _) in LM10_TEACHER_CPU.items()}
 LM10_CARD_CPU = dict(decode=4, rtol=1e-4, atol=1e-4)
+# Phase 11, LM training and the paged decode at Llama-3.2-1B's full width.
+# 11a: phase 9's first batch (bf16 served copy) through the paged decode
+# with a page of 4, every layer flushed each 4 steps (four wraps in 16 new
+# tokens), within phase 9's teacher-forcing bound; depth 2 in float32 on the
+# card and the CPU within LM_CARD_CPU. 11b: train() at full width, float32
+# masters and bf16 compute, batch 8 x seq 128 on the Markov stream, lr 1e-3
+# (the reference example's 100M run), 20 steps; then LM11_TIMED steps under
+# CUDA events, one under the profiler and one with remat. 11c: one train step
+# at depth 2 in float32, card against CPU. 11d: ElasticRunner over the tiny
+# preset's train step, a node lost at step 7 and a NaN at step 9, against an
+# uninterrupted run (the card's embedding backward may sum in another order
+# between runs, hence a bound and not equality). 11e: the training example.
+LM11_PAGE = 4
+LM11_TRAIN = dict(batch=8, seq=128, steps=20, lr=1e-3)
+LM11_TIMED = 5
+LM11_CARD_CPU = dict(n_layers=2, rtol=1e-4, atol=1e-4)
+LM11_ELASTIC = dict(steps=12, ckpt_every=5, lose_at=7, nan_at=9)
+LM11_ELASTIC_ATOL = 1e-5
 
 
 def log(*a):
@@ -2762,6 +2800,18 @@ def lm_requests(vocab: int, n: int = LM_REQUESTS, seed: int = 0) -> list:
             for _ in range(n)]
 
 
+def padded_prompts(vocab: int):
+    """Phase 9's first batch, left-padded as the engine pads it."""
+    import numpy as np
+
+    prompts = lm_requests(vocab)[:LM_ENGINE["max_batch"]]
+    max_len = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), max_len), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, max_len - len(p):] = p
+    return toks
+
+
 def lm_bounds(cfg, tokens: int, batch: int, cache_len: int) -> dict:
     """Least time of a prefill of ``tokens`` prompt tokens and of one
     decode step of ``batch`` rows: the bf16 weights read once (embedding
@@ -2964,11 +3014,8 @@ def lm_card_against_cpu(dev, smi: str) -> dict:
     cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=c["n_layers"], dtype="float32")
     gpu = Transformer(cfg, LM_SEED, device=dev)
     cpu = cast_weights(gpu, torch.float32, "cpu")
-    prompts = lm_requests(cfg.vocab)[:LM_ENGINE["max_batch"]]
-    max_len = max(len(p) for p in prompts)
-    toks = np.zeros((len(prompts), max_len), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, max_len - len(p):] = p
+    toks = padded_prompts(cfg.vocab)
+    n, max_len = toks.shape
     log(f"[9c] the CPU side: {torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} "
         f"threads, float32 matmul precision {torch.get_float32_matmul_precision()}")
     lg, cg = prefill(gpu, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
@@ -2988,8 +3035,8 @@ def lm_card_against_cpu(dev, smi: str) -> dict:
     hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
     g = cfg.n_heads // kvh
     rng = np.random.default_rng(1)
-    q = torch.from_numpy(rng.standard_normal((len(prompts), max_len, kvh, g, hd)).astype(np.float32))
-    k, v = (torch.from_numpy(rng.standard_normal((len(prompts), max_len, kvh, hd)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((n, max_len, kvh, g, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((n, max_len, kvh, hd)).astype(np.float32))
             for _ in "kv")
     pos = torch.arange(max_len, dtype=torch.int32)
     flash_err = close(flash_attention(*(a.to(dev) for a in (q, k, v, pos, pos))),
@@ -3426,6 +3473,435 @@ def phase10(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: LM training at full width and the paged decode.
+# ---------------------------------------------------------------------------
+
+def paged_graft(cache, cfg, batch: int, cache_len: int, dev):
+    """Give a prefilled cache's full-attention layers the hot page of
+    ``LM11_PAGE`` slots (``init_cache`` under ``PAGED_DECODE``), as the
+    reference's test grafts its paged template onto a prefill cache."""
+    from repro_torch.models import transformer as T
+
+    old, T.PAGED_DECODE = T.PAGED_DECODE, LM11_PAGE
+    try:
+        pages = T.init_cache(cfg, batch, cache_len, device=dev)
+    finally:
+        T.PAGED_DECODE = old
+    for c, p in zip(cache, pages):
+        c.update({k: v for k, v in p.items() if k not in c})
+    return cache
+
+
+def decode_run(model, toks, feed=None, paged: bool = True, timed: bool = False) -> dict:
+    """A prefill of ``toks`` and ``LM_NEW - 1`` decode steps, greedy or fed
+    ``feed`` (B, LM_NEW - 1), paged (every layer flushed each ``LM11_PAGE``
+    steps) or dense: the logits of each new token (B, LM_NEW, V) and, when
+    ``timed``, each decode step's and flush's ms under CUDA events and
+    host synchronizations."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.attention import flush_page
+
+    b, s = toks.shape
+    cache_len = s + LM_NEW
+    logits, cache = prefill(model, {"tokens": toks}, cache_len=cache_len)
+    if paged:
+        cache = paged_graft(cache, model.cfg, b, cache_len, model.device)
+    out, steps, flushes, syncs = [logits], [], [], []
+
+    def run(fn, into):
+        if not timed:
+            return fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res, n = count_syncs(fn)
+        ev[1].record()
+        into.append(ev)
+        syncs.append(n)
+        return res
+
+    for i in range(LM_NEW - 1):
+        if paged and i > 0 and i % LM11_PAGE == 0:
+            cache = run(lambda: [flush_page(c) for c in cache], flushes)
+        tok = logits.argmax(-1) if feed is None else torch.as_tensor(feed[:, i]).to(model.device)
+        logits, cache = run(lambda: decode_step(model, {"tokens": tok[:, None]}, cache, s + i), steps)
+        out.append(logits)
+    logits = torch.stack(out, 1)
+    if timed:
+        torch.cuda.synchronize()
+    ms = lambda evs: [a.elapsed_time(z) for a, z in evs]  # noqa: E731
+    return dict(logits=logits, tokens=logits.argmax(-1), step_ms=ms(steps), flush_ms=ms(flushes),
+                syncs=syncs, cache=cache)
+
+
+def lm_paged_decode(dev, smi: str) -> dict:
+    """11a: phase 9's first batch of Llama-3.2-1B at full width, bf16, through
+    the paged decode, against forward_train; the dense decode of the same
+    tokens timed beside it; then depth 2 in float32, card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, cast_weights, forward_train
+
+    cfg = get_config(LM_ARCH)
+    masters = Transformer(cfg, LM_SEED, device=dev)
+    model = cast_weights(masters)  # the served bf16 copy, as ServingEngine's
+    del masters
+    toks = padded_prompts(cfg.vocab)
+    s = toks.shape[1]
+    decode_run(model, toks)  # warm-up, not timed
+    paged = decode_run(model, toks, timed=True)
+    fed = paged["tokens"][:, :-1].cpu().numpy()
+    dense = decode_run(model, toks, feed=fed, paged=False, timed=True)
+    require(paged["syncs"] == [0] * len(paged["syncs"]),
+            f"[11a] a paged decode step or flush synchronized the host: {paged['syncs']}")
+    tf = forward_train(model, {"tokens": np.concatenate([toks, fed], 1)})[0][:, s - 1:]
+    err = float((tf - paged["logits"]).abs().max())
+    vs_dense = float((dense["logits"] - paged["logits"]).abs().max())
+    require(err <= LM_TEACHER_ATOL, f"[11a] paged decode against forward_train: {err} > {LM_TEACHER_ATOL}")
+    top = torch.topk(paged["logits"], 2, -1).values
+    clear = (top[..., 0] - top[..., 1]) > 2 * LM_TEACHER_ATOL
+    require(bool(((tf.argmax(-1) == paged["tokens"]) | ~clear).all()),
+            "[11a] teacher forcing picks another token where the margin exceeds twice the bound")
+    last_flush = max(i for i in range(1, LM_NEW - 1) if i % LM11_PAGE == 0)
+    for c in paged["cache"]:
+        pos = {int(p) for p in c["pos"].cpu() if p >= 0}
+        require(set(range(s + last_flush)) <= pos, "[11a] a flushed position is missing from the main cache")
+        require(sorted(int(p) for p in c["page_pos"].cpu() if p >= 0) == list(range(s + last_flush, s + LM_NEW - 1)),
+                "[11a] the page does not hold the positions since the last flush")
+    pm, dm = statistics.median(paged["step_ms"]), statistics.median(dense["step_ms"])
+    fm = statistics.median(paged["flush_ms"])
+    log(f"[11a] {LM_ARCH} full width, bf16, batch {toks.shape}, {LM_NEW} new tokens, page {LM11_PAGE} "
+        f"(every layer flushed each {LM11_PAGE} steps): paged decode step median {pm:.3f} ms (min "
+        f"{min(paged['step_ms']):.3f}, max {max(paged['step_ms']):.3f}), flush of all {cfg.n_layers} layers "
+        f"median {fm:.3f} ms; dense decode step on the same tokens median {dm:.3f} ms (min "
+        f"{min(dense['step_ms']):.3f}); teacher forcing max abs logit difference {err:.4f} (bound "
+        f"{LM_TEACHER_ATOL}), tokens equal at {int(clear.sum())} of {clear.numel()} positions with a clear "
+        f"margin; paged against dense {vs_dense:.4f}; {sum(paged['syncs'])} host synchronizations in "
+        f"{len(paged['syncs'])} paged steps and flushes [{smi}]")
+    del model, paged, dense, tf
+    torch.cuda.empty_cache()
+    # Depth 2, float32: the CPU's tokens feed both.
+    c = LM_CARD_CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=c["n_layers"], dtype="float32")
+    gpu = Transformer(cfg2, LM_SEED, device=dev)
+    cpu = cast_weights(gpu, torch.float32, "cpu")
+    rc = decode_run(cpu, toks)
+    rg = decode_run(gpu, toks, feed=rc["tokens"][:, :-1].numpy())
+    errs = [close(rg["logits"][:, i], rc["logits"][:, i], f"[11a] card against CPU, token {i}",
+                  c["rtol"], c["atol"]) for i in range(LM_NEW)]
+    for a, b in zip(rg["cache"], rc["cache"]):
+        for k in b:
+            close(a[k], b[k], f"[11a] card against CPU, cache {k}", c["rtol"], c["atol"])
+    log(f"[11a] card against CPU, {LM_ARCH} at depth {c['n_layers']}, float32, paged: max abs logit "
+        f"difference per token " + " ".join(f"{e:.2e}" for e in errs) + f" (rtol = atol = {c['atol']}); "
+        f"the flushed caches within the same bound")
+    return dict(paged_step_ms=pm, dense_step_ms=dm, flush_ms=fm, teacher_max_abs_err=err,
+                paged_vs_dense=vs_dense, card_cpu_max_abs_err=max(errs))
+
+
+def train_bounds(cfg, tokens: int) -> dict:
+    """Least time of one train step, reckoned from the code: the matmuls'
+    6 x parameters x tokens operations over the dense bf16 peak, then
+    AdamW's 28 bytes a parameter (p, g, mu, nu read; p, mu, nu written, all
+    float32) over HBM bandwidth. The two run one after the other."""
+    n = cfg.param_count()
+    mm = 6 * n * tokens / PEAK_BF16_S * 1e3
+    adam = 28 * n / PEAK_BYTES_S * 1e3
+    return dict(matmul_ms=mm, adamw_ms=adam, bound_ms=mm + adam, ops=6 * n * tokens, adamw_bytes=28 * n)
+
+
+# Kernel name parts of each kind, for a train step's device time by kind.
+KERNEL_KINDS = (("matmul", ("gemm", "cutlass", "nvjet", "xmma", "cublas")), ("multi_tensor", ("multi_tensor",)),
+                ("reduction", ("reduce",)), ("copy", ("memcpy", "memset")))
+
+
+def device_time_by_kind(fn) -> tuple[float, int, dict]:
+    """One call of ``fn()`` (after one unprofiled) under the profiler: the
+    device's busy ms, its operation count, and ms and count by kernel kind
+    (``KERNEL_KINDS``; the rest "elementwise and other") with the three
+    longest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ran = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kinds: dict = {}
+    for e in ran:
+        name = e.name.lower()
+        kind = next((k for k, parts in KERNEL_KINDS if any(p in name for p in parts)), "elementwise and other")
+        d = kinds.setdefault(kind, dict(ms=0.0, n=0))
+        d["ms"] += e.device_time_total / 1e3
+        d["n"] += 1
+    top = sorted(ran, key=lambda e: -e.device_time_total)[:3]
+    kinds["longest"] = [(e.name[:60], e.device_time_total / 1e3) for e in top]
+    return sum(e.device_time_total for e in ran) / 1e3, len(ran), kinds
+
+
+def lm_train_full(dev, smi: str) -> dict:
+    """11b: ``train`` of Llama-3.2-1B at full width (float32 masters, bf16
+    compute) on the Markov stream; then steps of the same model under CUDA
+    events and the profiler, and one with ``remat=True``."""
+    import torch
+
+    from repro_torch.data import lm_data
+    from repro_torch.launch.train import train
+    from repro_torch.models import Transformer
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, loss_fn, make_train_step
+
+    t = LM11_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, hist = train(arch=LM_ARCH, preset=None, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                        lr=t["lr"], log_every=1, seed=LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop_peak = torch.cuda.max_memory_allocated()
+    cfg = model.cfg
+    losses = [m["loss"] for m in hist]
+    require(len(losses) == t["steps"] and all(math.isfinite(x) for x in losses), f"[11b] losses {losses}")
+    require(losses[-1] < losses[0], f"[11b] the loss did not fall: {losses[0]} -> {losses[-1]}")
+    fresh = Transformer(cfg, LM_SEED, device=dev)
+    moved = sum(not torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters()))
+    require(moved == len(list(fresh.parameters())), f"[11b] {moved} parameter tensors moved")
+    del fresh
+    # Further steps on the trained model, timed.
+    tcfg = TrainConfig(opt=OptConfig(lr=t["lr"], warmup_steps=2, total_steps=t["steps"]), remat=False)
+    step = make_train_step(cfg, tcfg)
+    opt = init_opt_state(model)
+    data = list(lm_data.batches(cfg.vocab, t["batch"], t["seq"], LM11_TIMED + 1, seed=LM_SEED + 1, device=dev))
+    step(model, opt, data[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for b in data[1:]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(model, opt, b)
+        ev[1].record()
+        times.append(ev)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(z) for a, z in times]
+    peak = torch.cuda.max_memory_allocated()
+    busy, n_ops, kinds = device_time_by_kind(lambda: step(model, opt, data[1]))
+    # remat=True, after a warm-up step: the same batch's loss without remat
+    # first (no update).
+    rstep = make_train_step(cfg, TrainConfig(opt=tcfg.opt, remat=True))
+    rstep(model, opt, data[3])  # warm-up
+    with torch.no_grad():
+        loss0 = float(loss_fn(model, data[2], cfg, TrainConfig(remat=False))[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    _, _, rm = rstep(model, opt, data[2])
+    ev[1].record()
+    torch.cuda.synchronize()
+    remat_ms, remat_peak = ev[0].elapsed_time(ev[1]), torch.cuda.max_memory_allocated()
+    remat_err = abs(float(rm["loss"]) - loss0)
+    require(remat_err <= 1e-5 * abs(loss0), f"[11b] remat loss {float(rm['loss'])} against {loss0}")
+    bd = train_bounds(cfg, t["batch"] * t["seq"])
+    med = statistics.median(step_ms)
+    tok = t["batch"] * t["seq"]
+    log(f"[11b] train({LM_ARCH}, preset=None): {cfg.param_count():,} parameters, float32 masters, "
+        f"{cfg.dtype} compute, batch {t['batch']} x seq {t['seq']}, lr {t['lr']}, {t['steps']} steps in "
+        f"{wall:.2f} s ({t['steps'] * tok / wall:.0f} tokens/s, init and the first step included); loss "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; peak memory {loop_peak / 2**30:.2f} GiB [{smi}]")
+    log(f"[11b] train step (CUDA events, {LM11_TIMED} steps): median {med:.2f} ms (min {min(step_ms):.2f}, "
+        f"max {max(step_ms):.2f}), {tok / med * 1e3:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB; under "
+        f"the profiler the device is busy {busy:.2f} ms of a step in {n_ops:.0f} operations "
+        f"({busy / med:.1%}); bound {bd['bound_ms']:.2f} ms = matmuls {bd['ops']:.3e} operations / "
+        f"{PEAK_BF16_S:.3g} ({bd['matmul_ms']:.2f} ms) + AdamW {bd['adamw_bytes'] / 1e9:.1f} GB / "
+        f"{PEAK_BYTES_S:.3g} B/s ({bd['adamw_ms']:.2f} ms); remat=True: {remat_ms:.2f} ms, peak "
+        f"{remat_peak / 2**30:.2f} GiB, loss {float(rm['loss']):.6f} against {loss0:.6f} without [{smi}]")
+    log("[11b] a step's device time by kind: " + ", ".join(
+        f"{k} {v['ms']:.2f} ms in {v['n']}" for k, v in kinds.items() if k != "longest")
+        + "; longest: " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in kinds["longest"]))
+    out = dict(losses=losses, loop_wall_s=wall, loop_tokens_per_s=t["steps"] * tok / wall,
+               loop_peak_gib=loop_peak / 2**30, step_ms=med, step_ms_all=step_ms, tokens_per_s=tok / med * 1e3,
+               peak_gib=peak / 2**30, busy_ms=busy, device_ops=n_ops, busy_by_kind=kinds, remat_ms=remat_ms,
+               remat_peak_gib=remat_peak / 2**30, remat_loss_err=remat_err, **bd)
+    del model, opt, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_card_against_cpu(dev, smi: str) -> dict:
+    """11c: one train step of Llama-3.2-1B at full width, depth 2, float32
+    (TF32 off), from the same weights and batch on the card and the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_data
+    from repro_torch.models import Transformer, cast_weights
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    c, t = LM11_CARD_CPU, LM11_TRAIN
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=c["n_layers"], dtype="float32")
+    gpu = Transformer(cfg, LM_SEED, device=dev)
+    cpu = cast_weights(gpu, torch.float32, "cpu")
+    batch = next(lm_data.batches(cfg.vocab, t["batch"], t["seq"], 1, seed=LM_SEED, device="cpu"))
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(lr=t["lr"]), remat=False))
+    log(f"[11c] the CPU side: {torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads")
+    t0 = time.perf_counter()
+    _, oc, mc = step(cpu, init_opt_state(cpu), batch)
+    cpu_s = time.perf_counter() - t0
+    _, og, mg = step(gpu, init_opt_state(gpu), {k: v.to(dev) for k, v in batch.items()})
+    errs = {k: close(mg[k], mc[k], f"[11c] {k}", c["rtol"], c["atol"]) for k in ("loss", "grad_norm", "xent")}
+    perr = max(close(a.detach(), b.detach(), f"[11c] parameter {n}", c["rtol"], c["atol"])
+               for (n, a), b in zip(gpu.named_parameters(), cpu.parameters()))
+    log(f"[11c] card against CPU, one train step of {LM_ARCH} at depth {c['n_layers']}, float32, "
+        f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}, batch {t['batch']} x {t['seq']}: loss "
+        f"{float(mc['loss']):.6f} (difference {errs['loss']:.2e}), gradient norm {float(mc['grad_norm']):.4f} "
+        f"({errs['grad_norm']:.2e}), every updated parameter within {perr:.2e} (rtol = atol = {c['atol']}); "
+        f"the CPU step took {cpu_s:.1f} s")
+    return dict(loss_err=errs["loss"], grad_norm_err=errs["grad_norm"], param_max_abs_err=perr, cpu_step_s=cpu_s)
+
+
+def elastic_lm_run(cfg, dev, ckpt_dir, batches, *, lose_at=None, nan_at=None, ckpt_every: int = 5):
+    """The port's real train step under ``ElasticRunner``: the state is
+    ``{"params", "opt"}`` keyed by parameter name, a restored state copied
+    into the model before its step. ``lose_at`` raises a node loss once;
+    ``nan_at`` poisons the weights once before that step, so its loss is
+    NaN and the runner restores the last good checkpoint."""
+    import torch
+
+    from repro_torch.distributed.fault_tolerance import ElasticRunner, FailureEvent
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import load_named_
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    model = init_params(LM_SEED, cfg, device=dev)
+    own = dict(model.named_parameters())
+    step = make_train_step(cfg, TrainConfig(
+        opt=OptConfig(lr=3e-3, warmup_steps=1, total_steps=len(batches)), remat=False))
+    armed = {"lose": lose_at, "nan": nan_at}
+
+    def make_state(mesh):
+        fresh = init_params(LM_SEED, cfg, device=dev)
+        return {"params": dict(fresh.named_parameters()), "opt": init_opt_state(fresh)}
+
+    def step_fn(state, batch):
+        load_named_(own, state["params"])
+        if armed["nan"] is not None and batch is batches[armed["nan"]]:
+            armed["nan"] = None
+            with torch.no_grad():
+                own["final_norm"].fill_(float("nan"))
+        _, opt, metrics = step(model, state["opt"], batch)
+        return {"params": own, "opt": opt}, metrics
+
+    def hook(i):
+        if i == armed["lose"]:
+            armed["lose"] = None
+            return FailureEvent(i, "node_lost", "simulated")
+        return None
+
+    runner = ElasticRunner(lambda n: f"mesh<{n}>", make_state, step_fn,
+                           CheckpointManager(ckpt_dir, keep_n=3), ckpt_every=ckpt_every, failure_hook=hook)
+    state, hist = runner.run(batches)
+    return runner, state, hist
+
+
+def lm_elastic(dev, smi: str) -> dict:
+    """11d: ``ElasticRunner`` over the tiny preset's real train step on the
+    card: a node lost and a NaN injected, against an uninterrupted run;
+    a checkpoint written on the card restored on the CPU."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import lm_data
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    e = LM11_ELASTIC
+    cfg = reduced_config(LM_ARCH, "tiny")
+    data = list(lm_data.batches(cfg.vocab, 8, 64, e["steps"], seed=1, device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, clean_state, _ = elastic_lm_run(cfg, dev, Path(tmp) / "clean", data, ckpt_every=e["ckpt_every"])
+        runner, state, hist = elastic_lm_run(cfg, dev, Path(tmp) / "faulted", data, lose_at=e["lose_at"],
+                                             nan_at=e["nan_at"], ckpt_every=e["ckpt_every"])
+        events = [(ev.step, ev.kind) for ev in runner.events]
+        require(clean.events == [] and events == [(e["lose_at"], "node_lost"), (e["nan_at"], "nan_loss")],
+                f"[11d] events {events}")
+        steps = [m["step"] for m in hist]
+        last_ckpt = e["lose_at"] - e["lose_at"] % e["ckpt_every"]
+        require(steps[:e["lose_at"] + 1] == list(range(e["lose_at"])) + [last_ckpt + 1],
+                f"[11d] the node loss did not resume after the step-{last_ckpt} checkpoint: {steps}")
+        require(steps[-1] == e["steps"] - 1 and int(state["opt"]["step"]) == e["steps"], f"[11d] steps {steps}")
+        diff = max(float((state["params"][k] - v).detach().abs().max()) for k, v in clean_state["params"].items())
+        exact = all(torch.equal(state["params"][k], v) for k, v in clean_state["params"].items())
+        require(diff <= LM11_ELASTIC_ATOL, f"[11d] final parameters differ from the uninterrupted run by {diff}")
+        mgr = CheckpointManager(Path(tmp) / "faulted")
+        mgr.save(e["steps"], state)
+        _, back = mgr.restore(state, device="cpu")
+        for k, v in state["params"].items():
+            require(torch.equal(back["params"][k], v.detach().cpu()), f"[11d] {k} restored on the CPU differs")
+        require(int(back["opt"]["step"]) == e["steps"], "[11d] the step restored on the CPU differs")
+    log(f"[11d] ElasticRunner over the tiny preset's train step on the card, {e['steps']} steps, a checkpoint "
+        f"every {e['ckpt_every']}: events {events}, {runner.restarts} restart, steps run {steps}; final "
+        f"parameters against the uninterrupted run: max abs difference {diff:.2e} "
+        f"({'bit for bit' if exact else 'not bit for bit'}); the checkpoint of the card's state restored on "
+        f"the CPU leaf for leaf")
+    return dict(events=events, final_max_abs_diff=diff, bit_for_bit=exact)
+
+
+def lm_train_example(smi: str) -> dict:
+    """11e: ``examples/torch_train_lm.py``'s default run (small100m, 300
+    steps, batch 8 x seq 256, lr 1e-3, a checkpoint every 20 steps) in its
+    own process on the card."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_train_lm.py"), "--ckpt-dir", tmp],
+                             capture_output=True, text=True, cwd=ROOT, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"[11e] the example failed: {out.stderr[-2000:]}")
+    traj = [(int(a), float(b)) for a, b in re.findall(r"^step\s+(\d+) loss ([\d.]+)", out.stdout, re.M)]
+    drop = float(re.search(r"\(drop ([-\d.]+)\)", out.stdout)[1])
+    require(drop > 0.05 and "on cuda" in out.stdout, f"[11e] loss drop {drop}")
+    log(f"[11e] examples/torch_train_lm.py (small100m, 300 steps, batch 8 x 256): wall {wall:.1f} s, loss "
+        + " ".join(f"{s}:{x:.3f}" for s, x in traj) + f", drop {drop:.3f} [{smi}]")
+    return dict(wall_s=wall, trajectory=traj, drop=drop)
+
+
+def phase11(dev, smi: str) -> dict:
+    """Phase 11, LM training at full width and the paged decode, on the
+    card with no error caught."""
+    import torch
+
+    t11 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = dict(paged=lm_paged_decode(dev, smi))
+    out["train"] = lm_train_full(dev, smi)
+    out["card_cpu"] = lm_train_card_against_cpu(dev, smi)
+    out["elastic"] = lm_elastic(dev, smi)
+    out["example"] = lm_train_example(smi)
+    out["train"].pop("step_ms_all")
+    log(f"[11] {json.dumps(out)}")
+    log(f"[11] phase wall time {time.perf_counter() - t11:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3593,6 +4069,9 @@ def main() -> int:
 
     # Phase 10: the MLA, MoE, RG-LRU and xLSTM families at full width.
     phase10(dev, smi)
+
+    # Phase 11: LM training at full width and the paged decode.
+    phase11(dev, smi)
 
     rows = []
     for name, r in kernels.items():

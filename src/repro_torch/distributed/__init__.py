@@ -1,3 +1,3 @@
 """Fleet carry migration (``sharding``), session liveness
-(``fault_tolerance``) and int8 quantization with error feedback
+(``fault_tolerance``, with the checkpoint/restart loop) and int8 quantization with error feedback
 (``compression``). Sharding over a device mesh is not ported yet."""

@@ -18,7 +18,7 @@ because the reference's exchange runs the quantizer under ``jax.jit``.
 The int8 collectives of the reference (``compressed_psum_int8``,
 ``dp_grad_sync_int8``, ``ring_allreduce_int8``) run over a device mesh
 and drive data-parallel training; they wait for the mesh (ROADMAP §1
-item 7) and the train stack (item 9).
+item 7).
 """
 from __future__ import annotations
 

@@ -1,21 +1,24 @@
-"""Liveness and straggler tracking: the port of the part of
-``repro.distributed.fault_tolerance`` that serving uses.
+"""Liveness, straggler tracking and the checkpoint/restart loop: the
+port of ``repro.distributed.fault_tolerance``.
 
 * :class:`HeartbeatMonitor` tracks per-node liveness over an explicit
   roster; a node silent for more than ``timeout_s`` is declared failed.
   The clock is injected, so tests simulate failures deterministically.
 * :class:`StragglerTracker` keeps an EMA of per-node step times with an
   outlier rule (EMA > factor x the fleet median = straggler).
+* :class:`ElasticRunner` — the restart loop: run steps, checkpoint every
+  ``ckpt_every``, and on failure rebuild the "mesh" and restore the
+  latest checkpoint. On one card the mesh is whatever ``mesh_factory``
+  returns (the reference rebuilds a device mesh from the survivors).
 
-Both are pure Python. The detection service keys them by session id
-(:mod:`repro_torch.serve.faults`). The checkpoint/restart loop
-(``FailureEvent``, ``ElasticRunner``) drives training and waits for the
-train stack.
+All pure Python. The detection service keys the first two by session id
+(:mod:`repro_torch.serve.faults`).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable
 
 
 class HeartbeatMonitor:
@@ -113,3 +116,84 @@ class StragglerTracker:
         if med == 0.0:
             return []
         return [n for n, t in self._ema.items() if t > self.factor * med]
+
+
+@dataclasses.dataclass
+class FailureEvent:
+    step: int
+    kind: str  # "node_lost" | "preemption" | "nan_loss"
+    detail: str = ""
+
+
+class ElasticRunner:
+    """Checkpoint/restart training loop.
+
+    ``make_state(mesh)`` builds (or restores) train state for a mesh;
+    ``step_fn(state, batch) -> state, metrics`` runs one step;
+    ``mesh_factory(n_failures)`` returns the (possibly shrunken) mesh
+    after each failure. Failures are raised by ``failure_hook`` (tests) or
+    detected via non-finite loss. ``ckpt`` is a
+    :class:`~repro_torch.train.checkpoint.CheckpointManager`; the state
+    is a tree it can save and restore into.
+    """
+
+    def __init__(
+        self,
+        mesh_factory: Callable[[int], Any],
+        make_state: Callable[[Any], Any],
+        step_fn: Callable[[Any, Any], tuple[Any, dict]],
+        ckpt,
+        ckpt_every: int = 10,
+        failure_hook: Callable[[int], FailureEvent | None] | None = None,
+    ):
+        self.mesh_factory = mesh_factory
+        self.make_state = make_state
+        self.step_fn = step_fn
+        self.ckpt = ckpt
+        self.ckpt_every = ckpt_every
+        self.failure_hook = failure_hook
+        self.events: list[FailureEvent] = []
+        self.restarts = 0
+
+    def run(self, batches: list[Any], start_step: int = 0) -> tuple[Any, list[dict]]:
+        mesh = self.mesh_factory(self.restarts)
+        state = self.make_state(mesh)
+        latest = self.ckpt.latest_step()
+        step = start_step
+        if latest is not None:
+            step, state = self.ckpt.restore(state)
+            step += 1
+        metrics_log: list[dict] = []
+        i = step
+        while i < len(batches):
+            if self.failure_hook is not None:
+                ev = self.failure_hook(i)
+                if ev is not None:
+                    # Simulated node loss: rebuild mesh, restore, resume.
+                    self.events.append(ev)
+                    self.restarts += 1
+                    mesh = self.mesh_factory(self.restarts)
+                    state = self.make_state(mesh)
+                    latest = self.ckpt.latest_step()
+                    if latest is not None:
+                        resume, state = self.ckpt.restore(state)
+                        i = resume + 1
+                    else:
+                        i = 0
+                    continue
+            state, metrics = self.step_fn(state, batches[i])
+            loss = float(metrics.get("loss", 0.0))
+            if loss != loss:  # NaN — restore from last good checkpoint
+                self.events.append(FailureEvent(i, "nan_loss"))
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    raise RuntimeError("NaN loss before first checkpoint")
+                resume, state = self.ckpt.restore(state)
+                i = resume + 1
+                continue
+            metrics_log.append(dict(metrics, step=i))
+            if i % self.ckpt_every == 0:
+                self.ckpt.save_async(i, state)
+            i += 1
+        self.ckpt.wait()
+        return state, metrics_log

@@ -1,3 +1,3 @@
 """Launchers of the port: the batched LM serving demo
-(:mod:`repro_torch.launch.serve`) and the model presets
-(:mod:`repro_torch.launch.train`; its training loop waits, ROADMAP item 9c)."""
+(:mod:`repro_torch.launch.serve`) and the training driver with its model
+presets (:mod:`repro_torch.launch.train`)."""

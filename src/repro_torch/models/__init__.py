@@ -13,6 +13,8 @@ from repro_torch.models.transformer import (  # noqa: F401
     forward_train,
     init_cache,
     init_params,
+    opt_state_from_jax,
+    opt_state_to_numpy,
     params_from_jax,
     params_to_numpy,
     prefill,

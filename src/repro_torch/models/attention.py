@@ -1,7 +1,7 @@
 """GQA attention with chunked online-softmax (flash-style) computation.
 
-The port of ``repro.models.attention`` without its paged decode (which
-waits with the dry-run variants, ROADMAP item 9d). ``flash_attention`` is
+The port of ``repro.models.attention``, the paged decode included.
+``flash_attention`` is
 the same algorithm in plain PyTorch: a loop over query chunks and, inside
 it, over KV chunks carrying the (m, l, acc) online-softmax state, with
 the reference's chunk sizes, ``NEG_INF = -1e30`` in place of ``-inf`` and
@@ -284,10 +284,129 @@ def attention_decode(
 
 
 def init_attn_cache(b: int, cache_len: int, n_kv_heads: int, head_dim: int, dtype,
-                    window: int | None = None, device=None) -> dict[str, torch.Tensor]:
+                    window: int | None = None, page: int = 0, device=None) -> dict[str, torch.Tensor]:
+    """An empty cache; ``page > 0`` adds the hot ring page of the paged
+    decode (``k_page``, ``v_page``, ``page_pos``)."""
     clen = min(cache_len, window) if window is not None else cache_len
-    return {
+    out = {
         "k": torch.zeros((b, clen, n_kv_heads, head_dim), dtype=dtype, device=device),
         "v": torch.zeros((b, clen, n_kv_heads, head_dim), dtype=dtype, device=device),
         "pos": torch.full((clen,), -1, dtype=torch.int32, device=device),
     }
+    if page:
+        out["k_page"] = torch.zeros((b, page, n_kv_heads, head_dim), dtype=dtype, device=device)
+        out["v_page"] = torch.zeros((b, page, n_kv_heads, head_dim), dtype=dtype, device=device)
+        out["page_pos"] = torch.full((page,), -1, dtype=torch.int32, device=device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: hot-page writes + two-source online-softmax merge.
+#
+# With the main cache sequence-sharded (context parallelism), a one-token
+# dynamic update rewrites the whole local cache shard every step. Instead,
+# new tokens land in a small ring page; attention runs over the frozen
+# cache and the page separately and merges the softmax partials; the page
+# is flushed into the main cache every ``page`` steps. On one device the
+# main cache is not sharded, so the paged path only adds work.
+# ---------------------------------------------------------------------------
+
+def decode_attention_partial(
+    q: torch.Tensor,  # (B, 1, KV, G, dk)
+    k: torch.Tensor,  # (B, Skv, KV, dk)
+    v: torch.Tensor,  # (B, Skv, KV, dv)
+    position: int,
+    kv_positions: torch.Tensor,  # (Skv,)
+    *,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unnormalized single-token attention: (acc, m, l), with out = acc / l
+    after merging the sources. Float32 products, the probabilities cast to
+    the value dtype before the second (the reference's
+    ``CACHE_DTYPE_DOTS = False`` branch)."""
+    dk = q.shape[-1]
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * (dk ** -0.5)
+    mask = (kv_positions >= 0) & (kv_positions <= position)
+    if window is not None:
+        mask = mask & (kv_positions > position - window)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)  # (B, KV, G, 1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v.float())
+    return acc, m, l
+
+
+def merge_attention_partials(parts: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """Combine (acc, m, l) online-softmax partials from disjoint KV sets."""
+    m_star = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_star = torch.maximum(m_star, m)
+    acc_tot = 0.0
+    l_tot = 0.0
+    for acc, m, l in parts:
+        scale = torch.exp(m - m_star)
+        acc_tot = acc_tot + acc * scale[..., None]
+        l_tot = l_tot + l * scale
+    return acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+
+
+def attention_decode_paged(
+    p: Attention,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: dict[str, torch.Tensor],
+    position: int,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    pos_cfg: dict[str, Any],
+    window: int | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One token against the main cache and the hot page: the new key,
+    value and position go into page slot ``position % page`` in place;
+    the main cache is only read. Returns (output, the same dict)."""
+    b = x.shape[0]
+    page = cache["k_page"].shape[1]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    pos_b = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    q, k = _apply_positional(q, k, pos_b, pos_cfg)
+    slot = position % page
+    cache["k_page"][:, slot] = k[:, 0]
+    cache["v_page"][:, slot] = v[:, 0]
+    cache["page_pos"][slot].fill_(position)
+    qg = q.reshape(b, 1, n_kv_heads, n_heads // n_kv_heads, head_dim)
+    out = merge_attention_partials([
+        decode_attention_partial(qg, cache["k"], cache["v"], position, cache["pos"], window=window),
+        decode_attention_partial(qg, cache["k_page"], cache["v_page"], position, cache["page_pos"],
+                                 window=window),
+    ])  # (B, KV, G, 1, dv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, n_heads * head_dim)
+    return out.to(x.dtype) @ p.wo.to(x.dtype), cache
+
+
+def flush_page(cache: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Merge the hot page into the main cache (run every ``page`` steps),
+    in place, and empty the page; returns the same dict.
+
+    Each valid page slot writes its key, value and position at its
+    absolute position; an empty slot (position -1) writes nothing, and a
+    position at or past the cache length is dropped, as the reference's
+    scatter drops it. Unlike the reference, an empty slot never writes
+    back over position 0 (ROADMAP §3). No host synchronization: the
+    cache is rewritten by a select, the amortized cost the page exists
+    for."""
+    if "k_page" not in cache:
+        return cache
+    ppos, clen = cache["page_pos"], cache["k"].shape[1]
+    t = torch.arange(clen, dtype=ppos.dtype, device=ppos.device)
+    hit = (ppos[None, :] == t[:, None]) & (ppos >= 0)[None, :]  # (clen, page)
+    src = hit.to(torch.int32).argmax(1)  # the page slot landing at each position
+    hit = hit.any(1)
+    for name, page_name in (("k", "k_page"), ("v", "v_page")):
+        cache[name].copy_(torch.where(hit[None, :, None, None], cache[page_name][:, src], cache[name]))
+    cache["pos"].copy_(torch.where(hit, ppos[src], cache["pos"]))
+    cache["k_page"].zero_()
+    cache["v_page"].zero_()
+    cache["page_pos"].fill_(-1)
+    return cache

@@ -29,9 +29,16 @@ from repro_torch.models.common import causal_conv, dense_weight, frozen_param, g
 C_SCALE = 8.0  # the paper's fixed `c` constant
 
 
+_ZERO = torch.tensor(0.0)  # a CPU scalar: no copy to the card
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``, ``logaddexp(x, 0)``."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``. ``torch.maximum`` splits
+    the gradient at x == 0 as ``logaddexp``'s does (0.5); ``clamp`` would
+    pass all of it. Only an entry of ``log_lambda`` that is exactly 0.0
+    meets it: init draws none (``softplus(0) = ln 2`` needs ``u`` =
+    ``0.5 ** 8``, outside [0.9, 0.999]), an update could land on one."""
+    return torch.maximum(x, _ZERO) + torch.log1p(torch.exp(-x.abs()))
 
 
 class RGLRU(nn.Module):

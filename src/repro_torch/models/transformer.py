@@ -19,9 +19,15 @@ masters cast to the config's dtype at each use, as there;
 :func:`cast_weights` makes a copy cast once (the serving engine's), which
 gives the same bits: every parameter the reference reads in float32 (the
 norm scales, the MoE router, the RG-LRU ``log_lambda``, the mLSTM gate
-biases) stays float32 in the copy. ``params_from_jax`` / ``params_to_numpy``
-and ``cache_from_jax`` / ``cache_to_numpy`` carry weights and decode
-caches across the two packages.
+biases) stays float32 in the copy. ``params_from_jax`` / ``params_to_numpy``,
+``opt_state_from_jax`` / ``opt_state_to_numpy`` and ``cache_from_jax`` /
+``cache_to_numpy`` carry weights, optimizer moments and decode caches
+across the two packages.
+
+``forward_train`` is differentiable: the trainer
+(:mod:`repro_torch.train.train_step`) sets ``requires_grad`` on the float32
+masters, which are built frozen for serving; ``prefill`` and
+``decode_step`` run without autograd.
 
 Three entry points, matching the shape kinds:
   forward_train  — full causal forward, logits + MoE aux loss
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -57,10 +64,17 @@ from repro_torch.models.common import (
     truncated_normal_init,
 )
 
-# One dict a layer: {"k", "v", "pos"} (attention), {"c_kv", "k_rope", "pos"}
-# (MLA), {"h", "conv"} (RG-LRU), {"c", "n", "m", "conv"} (mLSTM) or
-# {"h", "c", "n", "m"} (sLSTM).
+# One dict a layer: {"k", "v", "pos"} (attention; a full-attention layer
+# adds {"k_page", "v_page", "page_pos"} when PAGED_DECODE > 0),
+# {"c_kv", "k_rope", "pos"} (MLA), {"h", "conv"} (RG-LRU),
+# {"c", "n", "m", "conv"} (mLSTM) or {"h", "c", "n", "m"} (sLSTM).
 Cache = list
+
+# When > 0, full-attention layer caches from init_cache get a hot ring page
+# of this many slots, and decode_step takes the paged path
+# (attention.attention_decode_paged); the caller flushes each such layer
+# (attention.flush_page) once the page is full.
+PAGED_DECODE = 0
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -183,6 +197,9 @@ def apply_layer_decode(lp: Block, x, cache, position: int, *, cfg: ModelConfig, 
     if lp.bt in ("attn", "local") and cfg.use_mla:
         y, cache = MLA.mla_decode(lp.inner, h, cache, position, dims=_mla_dims(cfg),
                                   theta=cfg.rope_theta)
+    elif lp.bt in ("attn", "local") and "k_page" in cache:
+        y, cache = A.attention_decode_paged(lp.inner, h, cache, position, **_attn_dims(cfg),
+                                            pos_cfg=pos_cfg, window=lp.window)
     elif lp.bt in ("attn", "local"):
         y, cache = A.attention_decode(lp.inner, h, cache, position, **_attn_dims(cfg),
                                       pos_cfg=pos_cfg, window=lp.window)
@@ -299,20 +316,38 @@ def _logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return logits.float()
 
 
-@torch.no_grad()
-def forward_train(model: Transformer, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def _train_layers(layers, x, aux, cfg: ModelConfig, positions, pos_cfg):
+    for lp in layers:
+        x, a = apply_layer_train(lp, x, cfg=cfg, positions=positions, pos_cfg=pos_cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def forward_train(model: Transformer, inputs: dict, *, remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward. Returns (logits float32 (B, S, V), moe_aux
     float32 scalar: the MoE layers' aux losses summed in layer order, 0
-    without experts). The forward only: the backward and the reference's
-    ``remat`` wait with training (ROADMAP item 9c)."""
+    without experts). Differentiable with respect to the parameters that
+    require grad. ``remat`` recomputes each block-pattern cycle in the
+    backward (``torch.utils.checkpoint``, non-reentrant), as the
+    reference's ``jax.checkpoint`` over its scanned cycle; the remainder
+    layers are not wrapped, as there. Where autograd records nothing
+    (grad disabled, or no parameter requires grad) ``remat`` is moot and
+    nothing is wrapped."""
     cfg = model.cfg
     x, positions = _embed_inputs(model, inputs, cfg)
     pos_cfg = _pos_cfg(cfg, _mrope(inputs, positions))
     aux = torch.zeros((), device=model.device)
-    for lp in model.layers:
-        x, a = apply_layer_train(lp, x, cfg=cfg, positions=positions, pos_cfg=pos_cfg)
-        if a is not None:
-            aux = aux + a
+    n_cycles, _ = _split_layers(cfg)
+    plen = len(cfg.block_pattern)
+    remat = remat and torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
+    for c in range(n_cycles):
+        cycle = model.layers[c * plen:(c + 1) * plen]
+        if remat:
+            x, aux = checkpoint(_train_layers, cycle, x, aux, cfg, positions, pos_cfg, use_reentrant=False)
+        else:
+            x, aux = _train_layers(cycle, x, aux, cfg, positions, pos_cfg)
+    x, aux = _train_layers(model.layers[n_cycles * plen:], x, aux, cfg, positions, pos_cfg)
     return _logits(model, x, cfg), aux
 
 
@@ -364,8 +399,9 @@ def _layer_cache(cfg: ModelConfig, bt: str, b: int, cache_len: int, dt, device) 
         return MLA.init_mla_cache(b, cache_len, cfg.kv_lora_rank, cfg.qk_rope_dim, dt, device=device)
     if bt in ("attn", "local"):
         window = cfg.local_window if bt == "local" else None
+        page = PAGED_DECODE if (bt == "attn" and PAGED_DECODE) else 0
         return A.init_attn_cache(b, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
-                                 window=window, device=device)
+                                 window=window, page=page, device=device)
     if bt == "rglru":
         return RG.init_rglru_state(b, cfg.lru_width or cfg.d_model, cfg.conv_width, device=device)
     if bt == "mlstm":
@@ -377,7 +413,8 @@ def _layer_cache(cfg: ModelConfig, bt: str, b: int, cache_len: int, dt, device) 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -> Cache:
     """An empty decode cache: one buffer set a layer (the reference's
-    ``stacked=False`` layout)."""
+    ``stacked=False`` layout); full-attention layers get a hot page of
+    ``PAGED_DECODE`` slots when it is set."""
     dev = resolve_device(device)
     return [_layer_cache(cfg, bt, batch, cache_len, _dtype(cfg), dev) for bt in cfg.layer_types]
 
@@ -424,38 +461,57 @@ def _layer_tree(tree: dict, cfg: ModelConfig, li: int) -> dict:
     return {k: v[cycle] for k, v in _flatten(tree["cycles"][name]).items()}
 
 
+def tree_to_named(tree: dict, cfg: ModelConfig) -> dict[str, Any]:
+    """A tree in the reference's parameter layout (numpy arrays or tensors)
+    as a dict keyed by the port's parameter names (``named_parameters``);
+    a cycle layer's entry is its row of the stacked leaf (a view)."""
+    state = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = tree["lm_head"]
+    for li in range(cfg.n_layers):
+        for k, v in _flatten(_layer_tree(tree, cfg, li)).items():
+            state[f"layers.{li}.{k}"] = v
+    return state
+
+
+def load_named_(dst: dict[str, torch.Tensor], src: dict[str, Any]) -> None:
+    """Copy ``src`` (numpy arrays or tensors, keyed by the port's parameter
+    names) into the tensors of ``dst`` in place, names and shapes checked;
+    a tensor that is already ``dst``'s own is left alone."""
+    if set(dst) != set(src):
+        raise ValueError(f"parameter trees differ: {sorted(set(dst) ^ set(src))[:5]}")
+    with torch.no_grad():
+        for k, v in src.items():
+            if v is dst[k]:
+                continue
+            if tuple(dst[k].shape) != tuple(np.shape(v)):
+                raise ValueError(f"{k}: shape {tuple(np.shape(v))} where {tuple(dst[k].shape)} is expected")
+            dst[k].copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)))
+
+
 def params_from_jax(np_params: dict, cfg: ModelConfig, *, device="cuda") -> Transformer:
     """The reference's parameter tree (numpy arrays: ``embed``,
     ``final_norm``, optional ``lm_head``, ``cycles`` stacked along the
     leading dim, ``rem{i}``) as a port :class:`Transformer` on ``device``.
     The orientation is the reference's; nothing is transposed."""
     model = Transformer(cfg, None, device=device)
-    state = {"embed": np_params["embed"], "final_norm": np_params["final_norm"]}
-    if not cfg.tie_embeddings:
-        state["lm_head"] = np_params["lm_head"]
-    for li in range(cfg.n_layers):
-        for k, v in _flatten(_layer_tree(np_params, cfg, li)).items():
-            state[f"layers.{li}.{k}"] = v
-    own = dict(model.named_parameters())
-    if set(own) != set(state):
-        raise ValueError(f"parameter trees differ: {sorted(set(own) ^ set(state))[:5]}")
-    with torch.no_grad():
-        for k, v in state.items():
-            if tuple(own[k].shape) != np.shape(v):
-                raise ValueError(f"{k}: shape {np.shape(v)} where {tuple(own[k].shape)} is expected")
-            own[k].copy_(torch.from_numpy(np.array(v)))
+    load_named_(dict(model.named_parameters()), tree_to_named(np_params, cfg))
     return model
 
 
+def _stack(xs: list):
+    return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+
 def _to_reference_tree(per_layer: list[dict], cfg: ModelConfig) -> dict:
-    """Per-layer numpy trees in the reference's layout: cycles stacked."""
+    """Per-layer trees (numpy arrays or tensors) in the reference's layout:
+    cycles stacked."""
     n_cycles, rem = _split_layers(cfg)
     plen = len(cfg.block_pattern)
     out: dict = {}
     if n_cycles:
         out["cycles"] = {
-            f"blk{j}": _nest({k: np.stack([_flatten(per_layer[i * plen + j])[k]
-                                           for i in range(n_cycles)])
+            f"blk{j}": _nest({k: _stack([_flatten(per_layer[i * plen + j])[k] for i in range(n_cycles)])
                               for k in _flatten(per_layer[j])})
             for j in range(plen)
         }
@@ -464,16 +520,66 @@ def _to_reference_tree(per_layer: list[dict], cfg: ModelConfig) -> dict:
     return out
 
 
+def named_to_tree(named: dict[str, Any], cfg: ModelConfig) -> dict:
+    """Values keyed by the port's parameter names (weights, gradients or
+    moments; numpy arrays or tensors) in the reference's parameter layout,
+    each cycle leaf stacked over the cycles."""
+    layers = [_nest({k.split(".", 2)[2]: v for k, v in named.items() if k.startswith(f"layers.{li}.")})
+              for li in range(cfg.n_layers)]
+    out = {"embed": named["embed"], "final_norm": named["final_norm"], **_to_reference_tree(layers, cfg)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = named["lm_head"]
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def named_to_numpy(named: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
+    """Tensors keyed by the port's parameter names as the reference's
+    parameter tree of numpy arrays (host copies)."""
+    return _tree_apply(_host, named_to_tree(named, cfg))
+
+
 def params_to_numpy(model: Transformer) -> dict:
     """The model's weights as the reference's parameter tree of numpy arrays."""
-    cfg = model.cfg
-    sd = {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
-    layers = [_nest({k.split(".", 2)[2]: v for k, v in sd.items() if k.startswith(f"layers.{li}.")})
-              for li in range(cfg.n_layers)]
-    out = {"embed": sd["embed"], "final_norm": sd["final_norm"], **_to_reference_tree(layers, cfg)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = sd["lm_head"]
+    return named_to_numpy(dict(model.named_parameters()), model.cfg)
+
+
+def opt_state_tree(opt_state: dict, cfg: ModelConfig) -> dict:
+    """A port optimizer state (``step``; ``mu`` and ``nu`` keyed by
+    parameter name; with int8 error feedback ``ef``, already in the
+    reference's layout) in the reference's optimizer state layout, the
+    tensors where they are."""
+    out = {"step": opt_state["step"], "mu": named_to_tree(opt_state["mu"], cfg),
+           "nu": named_to_tree(opt_state["nu"], cfg)}
+    if "ef" in opt_state:
+        out["ef"] = opt_state["ef"]
     return out
+
+
+def opt_state_to_numpy(opt_state: dict, cfg: ModelConfig) -> dict:
+    """:func:`opt_state_tree` as numpy arrays (host copies)."""
+    return _tree_apply(_host, opt_state_tree(opt_state, cfg))
+
+
+def opt_state_from_jax(np_opt: dict, cfg: ModelConfig, *, device="cuda") -> dict:
+    """The reference's optimizer state tree (numpy arrays) as a port
+    optimizer state on ``device``: ``step`` an int32 scalar, the moments
+    float32 tensors keyed by parameter name, ``ef`` in the reference's
+    layout."""
+    dev = resolve_device(device)
+    out = {"step": torch.as_tensor(np.asarray(np_opt["step"]), dtype=torch.int32).to(dev)}
+    for k in ("mu", "nu"):
+        out[k] = {n: _tensor(v, dev) for n, v in tree_to_named(np_opt[k], cfg).items()}
+    if "ef" in np_opt:
+        out["ef"] = _tree_apply(lambda a: _tensor(a, dev), np_opt["ef"])
+    return out
+
+
+def _tree_apply(fn, tree):
+    return {k: _tree_apply(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def cache_to_numpy(cache: Cache, cfg: ModelConfig) -> dict:

@@ -244,6 +244,9 @@ def slstm_init(generator: torch.Generator, d_model: int, n_heads: int) -> SLSTM:
     return SLSTM(d_model, n_heads, generator)
 
 
+_ONE = torch.tensor(1.0)  # a CPU scalar: no copy to the card
+
+
 def _slstm_cell(p: SLSTM, xw_t: torch.Tensor, state: dict, *, n_heads: int) -> dict:
     """One sLSTM time step from ``xw_t = x_t @ w_gates`` (B, 4d), in the
     activation dtype, and the float32 carry."""
@@ -264,7 +267,10 @@ def _slstm_cell(p: SLSTM, xw_t: torch.Tensor, state: dict, *, n_heads: int) -> d
     f_g = torch.exp(log_f + state["m"] - m_new)
     c_new = f_g * state["c"] + i_g * torch.tanh(z_raw)
     n_new = f_g * state["n"] + i_g
-    h_new = torch.sigmoid(o_raw) * c_new / torch.clamp(n_new, min=1.0)
+    # torch.maximum, as the reference's jnp.maximum, splits the gradient at a
+    # tie (clamp would pass all of it): at the first step, with m = 0,
+    # n_new is exactly 1.0 wherever i_raw >= log_f.
+    h_new = torch.sigmoid(o_raw) * c_new / torch.maximum(n_new, _ONE)
     return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
 
 

@@ -34,7 +34,8 @@ with the host; ``window_entropy`` on real reconstructed frames agrees
 with the frame oracle's entropies and contrast. The LM models (the
 attention families and the reduced MLA, MoE, RG-LRU and xLSTM ones) in
 float32 equal the CPU's within rtol = atol = 1e-4, serve the CPU's tokens,
-and make no host synchronization in a decode step. The adversarial inputs
+and make no host synchronization in a decode step; so do a train step of
+each (loss, gradient norm, updated parameters) and the paged decode. The adversarial inputs
 come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
 are shared with ``test_torch_kernels.py``.
 """
@@ -1168,3 +1169,90 @@ def test_lm_family_engine_step_on_card_equals_cpu(cuda_dev, arch):
         outs[name] = [r.output for r in eng.step()]
     assert outs["cuda"] == outs["cpu"] and all(len(o) == 6 for o in outs["cuda"])
     assert decode_syncs == [0] * 5, decode_syncs
+
+
+def _train_batch(cfg, seed=2):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (4, 12)).astype(np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", *LM_FAMILIES])
+def test_lm_train_step_on_card_equals_cpu(cuda_dev, arch, tmp_path):
+    """One train step of a reduced model in float32 on the card and on the
+    CPU (TF32 off), from the same weights and batch, MoE without drops: the
+    loss, the gradient norm and every updated parameter and moment within
+    rtol = atol = 1e-4; a checkpoint of the card's state restores on the
+    CPU leaf for leaf."""
+    import dataclasses
+
+    from repro_torch.models import opt_state_to_numpy, params_to_numpy
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _lm_pair(cuda_dev) if arch == "llama3.2-1b" else _family_pair(cuda_dev, arch)
+    cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    cpu.cfg = gpu.cfg = cfg
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(lr=1e-3), remat=True))
+    batch = _train_batch(cfg)
+    (_, og, mg), (_, oc, mc) = (step(gpu, init_opt_state(gpu), batch),
+                                step(cpu, init_opt_state(cpu), batch))
+    for k in ("loss", "grad_norm", "xent", "moe_aux"):
+        assert mg[k].device == gpu.device
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-4, atol=1e-4)
+    for k, v in dict(cpu.named_parameters()).items():
+        torch.testing.assert_close(dict(gpu.named_parameters())[k].detach().cpu(), v.detach(),
+                                   rtol=1e-4, atol=1e-4, msg=k)
+    for k in ("mu", "nu"):
+        for n, v in oc[k].items():
+            torch.testing.assert_close(og[k][n].cpu(), v, rtol=1e-4, atol=1e-4 * float(v.abs().max()) + 1e-9)
+    state = {"params": params_to_numpy(gpu), "opt": opt_state_to_numpy(og, cfg)}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, {"params": dict(gpu.named_parameters()), "opt": og})
+    _, back = mgr.restore({"params": dict(cpu.named_parameters()), "opt": oc}, device="cpu")
+    for k, v in back["params"].items():
+        assert torch.equal(v, dict(gpu.named_parameters())[k].detach().cpu()), k
+    assert int(back["opt"]["step"]) == 1 and state["opt"]["step"] == 1
+
+
+@pytest.mark.cuda
+def test_lm_paged_decode_on_card_equals_cpu(cuda_dev):
+    """A reduced Llama's paged decode (page 4, flushed when full) in
+    float32 on the card and on the CPU: logits within rtol = atol = 1e-4
+    over 10 steps, the flushed caches equal within 1e-5; neither a paged
+    decode step nor a flush synchronizes the host."""
+    from repro_torch.models import attention as TA
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import transformer as TT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _lm_pair(cuda_dev)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (4, 20)).astype(np.int32)
+    old, TT.PAGED_DECODE = TT.PAGED_DECODE, 4
+    try:
+        pages = {d: init_cache(cfg, 4, 20, device=d) for d in ("cpu", cuda_dev)}
+    finally:
+        TT.PAGED_DECODE = old
+    caches, syncs = {}, []
+    for d, model in (("cpu", cpu), (cuda_dev, gpu)):
+        _, caches[d] = prefill(model, {"tokens": toks[:, :10]}, cache_len=20)
+        for c, p in zip(caches[d], pages[d]):
+            c.update({k: v for k, v in p.items() if k not in c})
+    for i in range(10):
+        if i > 0 and i % 4 == 0:
+            caches["cpu"] = [TA.flush_page(c) for c in caches["cpu"]]
+            caches[cuda_dev], n = _count_syncs(lambda: [TA.flush_page(c) for c in caches[cuda_dev]])
+            syncs.append(n)
+        nxt = {"tokens": torch.from_numpy(toks[:, 10 + i:11 + i])}
+        on_card = {"tokens": nxt["tokens"].to(cuda_dev)}  # the upload synchronizes, the step must not
+        lc, caches["cpu"] = decode_step(cpu, nxt, caches["cpu"], 10 + i)
+        (lg, caches[cuda_dev]), n = _count_syncs(lambda: decode_step(gpu, on_card, caches[cuda_dev], 10 + i))
+        syncs.append(n)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert syncs == [0] * len(syncs), syncs
+    for cg, cc in zip(caches[cuda_dev], caches["cpu"]):
+        for k in cc:
+            torch.testing.assert_close(cg[k].cpu(), cc[k], rtol=1e-5, atol=1e-5)

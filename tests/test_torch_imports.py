@@ -48,14 +48,17 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.models.mla", "repro_torch.models.moe", "repro_torch.models.rglru",
               "repro_torch.models.xlstm",
               "repro_torch.serve.lm", "repro_torch.serve.engine", "repro_torch.launch",
-              "repro_torch.launch.serve", "repro_torch.launch.train"):
+              "repro_torch.launch.serve", "repro_torch.launch.train", "repro_torch.train",
+              "repro_torch.train.optimizer", "repro_torch.train.train_step",
+              "repro_torch.train.checkpoint", "repro_torch.data.lm_data"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",
         "event_unpack", "grid_quantize", "window_entropy"}
     assert {p.name for p in (REPO / "examples").glob("torch_*.py")} == {
         "torch_quickstart.py", "torch_fleet_quickstart.py", "torch_serve_detections.py",
-        "torch_stream_quickstart.py", "torch_constellation_quickstart.py", "torch_serve_lm.py"}
+        "torch_stream_quickstart.py", "torch_constellation_quickstart.py", "torch_serve_lm.py",
+        "torch_train_lm.py"}
     assert {p.stem for p in (PORT / "configs").glob("*_*.py")} == {
         p.stem for p in (REPO / "src" / "repro" / "configs").glob("*_*.py")}
 
@@ -86,7 +89,7 @@ def _no_card():
         pytest.skip("a CUDA device is present; the no-card refusal cannot be shown here")
 
 
-def test_entry_points_default_to_cuda_and_refuse_without_a_card():
+def test_entry_points_default_to_cuda_and_refuse_without_a_card(tmp_path):
     _no_card()
     from repro_torch import resolve_device
     from repro_torch.core.events import (
@@ -100,7 +103,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     from repro_torch.core.tracking import init_tracks, tracks_from_numpy, tracks_to_numpy
     from repro_torch.data.synthetic import make_recording
     from repro_torch.launch.serve import serve_demo
-    from repro_torch.launch.train import reduced_config
+    from repro_torch.data.lm_data import batches
+    from repro_torch.launch.train import reduced_config, train
+    from repro_torch.models import opt_state_from_jax, opt_state_to_numpy
+    from repro_torch.train import init_opt_state
+    from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.models import (
         Transformer, cache_from_jax, init_cache, init_params, params_from_jax, params_to_numpy,
     )
@@ -113,6 +120,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
     rec = make_recording(seed=1, duration_s=0.05)
     tiny = reduced_config("llama3.2-1b", "tiny")
     cpu_model = init_params(0, tiny, device="cpu")
+    ckpt_dir = tmp_path / "ckpt"
+    CheckpointManager(ckpt_dir).save(0, {"w": torch.ones(2)})
     for call in (
         lambda: resolve_device(),
         lambda: pad_windows(rec.x, rec.y, rec.t, rec.p),
@@ -165,13 +174,19 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
             "minicpm3-4b", "moonshot-v1-16b-a3b", "recurrentgemma-9b", "xlstm-350m")),
         lambda: init_cache(reduced_config("xlstm-350m", "tiny"), 2, 8),
         lambda: serve_demo(arch="recurrentgemma-9b", n_requests=2),
+        lambda: train(),
+        lambda: train(preset=None, steps=1, remat=True),
+        lambda: batches(tiny.vocab, 2, 8, 1),
+        lambda: opt_state_from_jax(opt_state_to_numpy(init_opt_state(cpu_model), tiny), tiny),
+        lambda: CheckpointManager(ckpt_dir).restore({"w": torch.zeros(2)}, device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("tool", [["torch_lm_teacher_bound.py"], ["torch_lm_phase.py", "10"]])
+@pytest.mark.parametrize("tool", [["torch_lm_teacher_bound.py"], ["torch_lm_phase.py", "10"],
+                                  ["torch_lm_phase.py", "11"]])
 def test_lm_tools_refuse_without_a_card(tool):
     """The LM tools run on the card unless told otherwise: with no
     ``--device`` and no card they exit non-zero before measuring."""
@@ -293,3 +308,18 @@ def test_example_serve_lm_runs_on_the_cpu_when_asked():
     assert out.returncode == 0, out.stderr
     assert "serving stats on cpu" in out.stdout
     assert "requests: 24" in out.stdout and "tokens_generated: 192" in out.stdout
+
+
+def test_example_train_lm_runs_fast_on_the_cpu_when_asked(tmp_path):
+    """The port's training example, ``--fast`` (the tiny preset, 40 steps)
+    on the CPU: the loss drops by more than 0.05, checkpoints written."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_train_lm.py"), "--fast", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    drop = float(re.search(r"\(drop ([-\d.]+)\)", out.stdout)[1])
+    assert drop > 0.05 and "on cpu" in out.stdout
+    assert sorted(p.name for p in tmp_path.glob("step_*")) == ["step_00000019", "step_00000039"]

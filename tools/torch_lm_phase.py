@@ -2,13 +2,15 @@
 """Runs LM phases of ``chip_smoke.py`` alone on the card, with every reading
 kept: phase 9c (Llama-3.2-1B at full width, depth 2, float32, card against
 CPU) or phase 10c (each family, one block-pattern cycle) repeated, phase
-10a (each family served at full width, without the teacher-forcing check)
-or the whole of phase 10.
+10a (each family served at full width, without the teacher-forcing check),
+the whole of phase 10, or the whole of phase 11 (LM training at full width
+and the paged decode).
 
     PYTHONPATH=src python tools/torch_lm_phase.py 9c --repeat 10
     PYTHONPATH=src python tools/torch_lm_phase.py 10c --repeat 3 [--arch A ...]
     PYTHONPATH=src python tools/torch_lm_phase.py 10a [--arch A ...]
     PYTHONPATH=src python tools/torch_lm_phase.py 10
+    PYTHONPATH=src python tools/torch_lm_phase.py 11
 
 A repeated run past its bound is recorded (with the message that names
 its reading) and the others still run; the script exits non-zero if any
@@ -32,7 +34,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("phase", choices=("9c", "10a", "10c", "10"))
+    ap.add_argument("phase", choices=("9c", "10a", "10c", "10", "11"))
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--arch", nargs="*", default=list(C.LM10_FAMILIES))
     args = ap.parse_args()
@@ -45,6 +47,9 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase == "11":
+        C.phase11(dev, smi)
+        return 0
     if args.phase == "10":
         C.LM10_FAMILIES = {a: C.LM10_FAMILIES[a] for a in args.arch}
         C.phase10(dev, smi)
