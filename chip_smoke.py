@@ -156,6 +156,19 @@ Phases (any failure exits non-zero; no error is caught):
    on the CPU leaf for leaf; (e) ``examples/torch_train_lm.py``'s default
    run (small100m, 300 steps), a loss drop over 0.05. Its summary is the
    line starting ``[11] {``.
+12. the launch tooling at Llama-3.2-1B's full width (plain PyTorch; no TPU
+   kernel lies on the path): (a) ``launch/op_analysis.py`` counts phase 9's
+   decode step, a prefill of phase 9's first batch and phase 11's train
+   step on the card (FLOPs, bytes, aten operators), with the roofline of
+   those counts on one H100 (``launch/roofline.py``), ``model_flops`` and
+   the useful ratio beside phases 9 and 11's hand bounds and medians; (b)
+   the same three steps counted on the meta device equal the card's; (c)
+   phase 9's first batch decoded with ``attention.CACHE_DTYPE_DOTS``
+   (the decode products in the cache's bf16): teacher forcing within 0.125,
+   no host synchronization, its step timed against the default's in turns;
+   (d) ``launch/dryrun.py`` over Llama-3.2-1B's three cells on both
+   production meshes, every cell ok. Its summary is the line starting
+   ``[12] {``.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -362,6 +375,18 @@ LM11_TIMED = 5
 LM11_CARD_CPU = dict(n_layers=2, rtol=1e-4, atol=1e-4)
 LM11_ELASTIC = dict(steps=12, ckpt_every=5, lose_at=7, nan_at=9)
 LM11_ELASTIC_ATOL = 1e-5
+# Phase 12, the launch tooling at Llama-3.2-1B's full width. 12a: the op
+# counter (launch/op_analysis.py) on the card over phase 9's decode step
+# (the first batch prefilled, batch 8, the bf16 served copy), a prefill of
+# phase 9's first batch and phase 11's train step (8 x 128, float32 masters,
+# remat=False), beside the roofline of its counts and phases 9 and 11's
+# hand bounds and medians. 12b: the same three steps counted on the meta
+# device, equal to the card's. 12c: phase 9's first batch decoded with
+# attention.CACHE_DTYPE_DOTS (products in the cache's bf16) against teacher
+# forcing within phase 9's bound, its decode step timed against the
+# default's on the same batch, in turns (default, switch, switch, default).
+# 12d: the dry run of Llama-3.2-1B's three cells on both production meshes.
+LM12_TURNS = (False, True, True, False)
 
 
 def log(*a):
@@ -3902,6 +3927,227 @@ def phase11(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the launch tooling (op counter, roofline, dry run) and the
+# cache-dtype decode products.
+# ---------------------------------------------------------------------------
+
+def lm12_steps(dev) -> dict:
+    """Phase 12's three steps of Llama-3.2-1B at full width on ``dev`` (the
+    card, or the meta device with weights and batches of the same shapes
+    and dtypes): each a function of no argument. decode: one step of the
+    bf16 served copy at position 64 after a prefill of phase 9's first
+    batch (not counted); prefill: that batch; train: phase 11's step, float32
+    masters, batch 8 x 128, remat=False."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_data
+    from repro_torch.models import Transformer, cast_weights, decode_step, prefill
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    t = LM11_TRAIN
+    meta = dev.type == "meta"
+    if meta:
+        served = Transformer(cfg, None, device=dev, weight_dtype=torch.bfloat16)
+    else:
+        served = cast_weights(Transformer(cfg, LM_SEED, device=dev))
+    toks = torch.from_numpy(padded_prompts(cfg.vocab)).to(dev)
+    s = toks.shape[1]
+    logits, cache = prefill(served, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"])
+    nxt = {"tokens": logits.argmax(-1)[:, None]}
+    masters = Transformer(cfg, None if meta else LM_SEED, device=dev)
+    opt = init_opt_state(masters)
+    if meta:
+        batch = {k: torch.empty(t["batch"], t["seq"], dtype=torch.int32, device=dev) for k in ("tokens", "labels")}
+    else:
+        batch = next(lm_data.batches(cfg.vocab, t["batch"], t["seq"], 1, seed=LM_SEED + 1, device=dev))
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(lr=t["lr"], warmup_steps=2, total_steps=t["steps"]),
+                                            remat=False))
+    return dict(
+        decode=lambda: decode_step(served, nxt, cache, s),
+        prefill=lambda: prefill(served, {"tokens": toks}, cache_len=LM_ENGINE["max_seq"]),
+        train=lambda: step(masters, opt, batch),
+    )
+
+
+def lm12_counts(dev) -> dict:
+    """The op counter's records of phase 12's three steps on ``dev``."""
+    from repro_torch.launch import op_analysis as O
+
+    steps = lm12_steps(dev)
+    return {name: O.count(fn) for name, fn in steps.items()}
+
+
+def lm12_roofline(card: dict, p9: dict | None, p11: dict | None, smi: str) -> dict:
+    """12a: each step's counts, their roofline on one card, model_flops and
+    the useful ratio, beside the phase's hand bound and measured median."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis as O
+    from repro_torch.launch import roofline as R
+
+    cfg = get_config(LM_ARCH)
+    b, s = padded_prompts(cfg.vocab).shape
+    hand = lm_bounds(cfg, b * s, b, LM_ENGINE["max_seq"])
+    tr = LM11_TRAIN
+    hand["train"] = train_bounds(cfg, tr["batch"] * tr["seq"])
+    tokens = dict(decode=b, prefill=b * s, train=tr["batch"] * tr["seq"])
+    medians = dict(decode=p9 and p9["decode_median_ms"], prefill=p9 and p9["prefill_ms"][0],
+                   train=p11 and p11["train"]["step_ms"])
+    device_ops = dict(decode=p9 and p9["decode_device_ops"], prefill=p9 and p9["prefill_device_ops"],
+                      train=p11 and p11["train"]["device_ops"])
+    out = {}
+    for name, counter in card.items():
+        c = O.analyze(counter)
+        terms = R.extract_terms(c, 1)
+        mf = R.model_flops(cfg.param_count(), tokens[name], kind=name)
+        bound_ms = terms.t_bound * 1e3
+        med = medians[name]
+        out[name] = dict(flops=c["flops"], bytes=c["bytes"], n_ops=c["n_ops"], n_views=c["n_views"],
+                         t_compute_ms=terms.t_compute * 1e3, t_memory_ms=terms.t_memory * 1e3, bound_ms=bound_ms,
+                         bottleneck=terms.bottleneck, model_flops=mf, useful_flops_ratio=mf / c["flops"],
+                         hand_bound_ms=hand[name]["bound_ms"], median_ms=med,
+                         share=bound_ms / med if med else None, profiler_device_ops=device_ops[name])
+        r = out[name]
+        top = O.top_bytes(counter, 3)
+        log(f"[12a] {name}: {c['flops']:.4e} FLOPs, {c['bytes']:.4e} bytes, {c['n_ops']:.0f} aten operators "
+            f"({c['n_views']:.0f} of them views; the profiler saw {device_ops[name] or 'not measured'} device "
+            f"operations); roofline on one card: compute {r['t_compute_ms']:.3f} ms, memory "
+            f"{r['t_memory_ms']:.3f} ms -> bound {bound_ms:.3f} ms ({terms.bottleneck}); model_flops "
+            f"{mf:.4e}, useful ratio {r['useful_flops_ratio']:.3f}; the phase's hand bound "
+            f"{r['hand_bound_ms']:.3f} ms; measured median "
+            + (f"{med:.3f} ms, bound / median {r['share']:.4f}" if med else "not measured")
+            + f"; most bytes: " + ", ".join(f"{d['op']} {d['shapes'][:48]} {d['bytes']:.3e}" for d in top)
+            + f" [{smi}]")
+    return out
+
+
+def lm12_meta_equals_card(card: dict) -> dict:
+    """12b: the same steps counted on the meta device: FLOPs, bytes and
+    operators equal to the card's, record for record."""
+    import torch
+
+    from repro_torch.launch import op_analysis as O
+
+    t0 = time.perf_counter()
+    meta = lm12_counts(torch.device("meta"))
+    wall = time.perf_counter() - t0
+    for name, counter in card.items():
+        a, m = O.analyze(counter), O.analyze(meta[name])
+        if a != m:
+            keys = sorted(set(counter.records) | set(meta[name].records))
+            for k in keys:
+                rc, rm = counter.records.get(k), meta[name].records.get(k)
+                vc = (rc.calls, rc.flops, rc.bytes) if rc else None
+                vm = (rm.calls, rm.flops, rm.bytes) if rm else None
+                if vc != vm:
+                    log(f"[12b] {name} differs at {k}: card {vc}, meta {vm}")
+        require(a == m, f"[12b] {name}: the meta count {m} differs from the card's {a}")
+    log(f"[12b] the meta device counts what the card ran: FLOPs, bytes and operators equal for "
+        + ", ".join(f"{n} ({O.analyze(c)['n_ops']:.0f} operators)" for n, c in card.items())
+        + f"; the three meta counts took {wall:.2f} s")
+    return dict(equal=True, meta_wall_s=wall)
+
+
+def lm12_cache_dtype_dots(dev, smi: str) -> dict:
+    """12c: phase 9's first batch decoded with CACHE_DTYPE_DOTS against
+    teacher forcing; the decode step timed against the default's, in
+    turns; no host synchronization in a step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, cast_weights, forward_train
+    from repro_torch.models import attention as A
+
+    cfg = get_config(LM_ARCH)
+    model = cast_weights(Transformer(cfg, LM_SEED, device=dev))
+    toks = padded_prompts(cfg.vocab)
+    s = toks.shape[1]
+    saved = A.CACHE_DTYPE_DOTS
+    runs = []
+    try:
+        A.CACHE_DTYPE_DOTS = True
+        greedy = decode_run(model, toks, paged=False)  # its tokens feed every timed run; also a warm-up
+        fed = greedy["tokens"][:, :-1].cpu().numpy()
+        for on in LM12_TURNS:
+            A.CACHE_DTYPE_DOTS = on
+            runs.append((on, decode_run(model, toks, feed=fed, paged=False, timed=True)))
+    finally:
+        A.CACHE_DTYPE_DOTS = saved
+    on_run = next(r for on, r in runs if on)
+    syncs = [n for on, r in runs if on for n in r["syncs"]]
+    require(syncs == [0] * len(syncs), f"[12c] a CACHE_DTYPE_DOTS decode step synchronized the host: {syncs}")
+    require(bool((on_run["tokens"] == greedy["tokens"]).all()), "[12c] the fed run served other tokens")
+    tf = forward_train(model, {"tokens": np.concatenate([toks, fed], 1)})[0][:, s - 1:]
+    err = float((tf - on_run["logits"]).abs().max())
+    require(err <= LM_TEACHER_ATOL, f"[12c] CACHE_DTYPE_DOTS decode against forward_train: {err} > {LM_TEACHER_ATOL}")
+    top = torch.topk(on_run["logits"], 2, -1).values
+    clear = (top[..., 0] - top[..., 1]) > 2 * LM_TEACHER_ATOL
+    require(bool(((tf.argmax(-1) == on_run["tokens"]) | ~clear).all()),
+            "[12c] teacher forcing picks another token where the margin exceeds twice the bound")
+    default_run = next(r for on, r in runs if not on)  # the same tokens fed
+    vs_default = float((default_run["logits"] - on_run["logits"]).abs().max())
+    med = {on: statistics.median([x for o, r in runs if o == on for x in r["step_ms"]]) for on in (False, True)}
+    turns = [round(statistics.median(r["step_ms"]), 3) for _, r in runs]
+    log(f"[12c] {LM_ARCH} full width, bf16, batch {toks.shape}, CACHE_DTYPE_DOTS: teacher forcing max abs logit "
+        f"difference {err:.4f} (bound {LM_TEACHER_ATOL}), tokens equal at {int(clear.sum())} of {clear.numel()} "
+        f"positions with a clear margin, against the default's logits on the same tokens {vs_default:.4f}; "
+        f"decode step median "
+        f"{med[True]:.3f} ms with it, {med[False]:.3f} ms without (turn medians {turns}, in the order "
+        f"{list(LM12_TURNS)}); {sum(syncs)} host synchronizations in {len(syncs)} steps [{smi}]")
+    del model, runs, tf
+    torch.cuda.empty_cache()
+    return dict(teacher_max_abs_err=err, vs_default=vs_default, step_ms=med[True], default_step_ms=med[False],
+                turns=turns)
+
+
+def lm12_dryrun(smi: str) -> dict:
+    """12d: the dry run of Llama-3.2-1B's cells on both production meshes,
+    on the meta device in this process."""
+    from repro_torch.configs.base import applicable_shapes, get_config
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    counts: dict = {}
+    recs = [D.run_cell(LM_ARCH, shape, mk, ROOT / D.DEFAULT_OUT, counts=counts)
+            for shape in applicable_shapes(get_config(LM_ARCH)) for mk in ("single", "multi")]
+    wall = time.perf_counter() - t0
+    bad = [(r["shape"], r["mesh"], r.get("error")) for r in recs if not r["ok"]]
+    require(not bad, f"[12d] dry-run cells failed: {bad}")
+    for r in recs:
+        rf = r["roofline"]
+        log(f"[12d] {r['shape']} x {r['mesh']} ({r['n_devices']} devices): {rf['flops_per_device']:.4e} FLOPs and "
+            f"{rf['hbm_bytes_per_device']:.4e} bytes a device, bound {max(rf['t_compute_s'], rf['t_memory_s']) * 1e3:.3f}"
+            f" ms ({rf['bottleneck']}), arguments {r['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB a device, "
+            f"useful ratio {r['useful_flops_ratio']:.3f}")
+    log(f"[12d] dry run of {len(recs)} cells, all ok, in {wall:.2f} s on the host (meta device)")
+    return dict(cells=len(recs), wall_s=wall)
+
+
+def phase12(dev, smi: str, p9: dict | None = None, p11: dict | None = None) -> dict:
+    """Phase 12, the launch tooling and the cache-dtype decode products at
+    full width, on the card with no error caught."""
+    import torch
+
+    t12 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = lm12_counts(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = dict(counts=lm12_roofline(card, p9, p11, smi))
+    out["meta"] = lm12_meta_equals_card(card)
+    del card
+    torch.cuda.empty_cache()
+    out["cache_dtype_dots"] = lm12_cache_dtype_dots(dev, smi)
+    out["dryrun"] = lm12_dryrun(smi)
+    log(f"[12] {json.dumps(out)}")
+    log(f"[12] phase wall time {time.perf_counter() - t12:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4065,13 +4311,17 @@ def main() -> int:
     p8 = phase8(scale, kernel_run, fleet_recs, dev)
 
     # Phase 9: the LM serving path at Llama-3.2-1B's full width.
-    phase9(dev, smi)
+    p9 = phase9(dev, smi)
 
     # Phase 10: the MLA, MoE, RG-LRU and xLSTM families at full width.
     phase10(dev, smi)
 
     # Phase 11: LM training at full width and the paged decode.
-    phase11(dev, smi)
+    p11 = phase11(dev, smi)
+
+    # Phase 12: the launch tooling (op counter, roofline, dry run) and the
+    # cache-dtype decode products.
+    phase12(dev, smi, p9, p11)
 
     rows = []
     for name, r in kernels.items():

@@ -11,7 +11,8 @@ Every score and PV product multiplies the operands upcast to float32: the
 reference asks XLA for a float32 result of bf16 operands
 (``preferred_element_type``), and a product of two bf16 values is exact in
 float32. The probabilities are cast to the value dtype before the PV
-product, as there.
+product, as there. The decode's products can instead run in the cache's
+dtype (``CACHE_DTYPE_DOTS``, off by default, as in the reference).
 
 Supports: causal masking via absolute positions, sliding-window (local)
 attention with a ring-buffer cache, GQA grouping (KV heads x group),
@@ -24,13 +25,20 @@ from typing import Any
 import torch
 from torch import nn
 
-from repro_torch.models.common import apply_mrope, apply_rope, dense_weight
+from repro_torch.models.common import all_trips, apply_mrope, apply_rope, dense_weight, trips
 
 NEG_INF = -1e30
 
 # The reference's default chunk sizes.
 Q_CHUNK = 512
 KV_CHUNK = 1024
+
+# When True, the decode score and PV products (``decode_attention``,
+# ``decode_attention_partial``) run in the cache's dtype, the query cast to
+# it, and are upcast to float32 after the product, as the reference's
+# switch of the same name; the MLA decode reaches it through
+# ``decode_attention``. False (the default) keeps the float32 products.
+CACHE_DTYPE_DOTS = False
 
 
 def flash_attention(
@@ -64,14 +72,17 @@ def flash_attention(
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, skv_p - skv))
         kv_positions = torch.nn.functional.pad(kv_positions, (0, skv_p - skv), value=-1)
 
+    n_q, n_kv = sq_p // q_chunk, skv_p // kv_chunk
     outs = []
-    for i in range(0, sq_p, q_chunk):
+    for qi in trips(n_q):
+        i = qi * q_chunk
         qc = q[:, i:i + q_chunk].float()  # (B, qc, KV, G, dk)
         qp = q_positions[i:i + q_chunk]
         m = torch.full((b, kvh, g, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, kvh, g, q_chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, kvh, g, q_chunk, dv), dtype=torch.float32, device=q.device)
-        for j in range(0, skv_p, kv_chunk):
+        for kj in trips(n_kv):
+            j = kj * kv_chunk
             ks, vs = k[:, j:j + kv_chunk], v[:, j:j + kv_chunk]
             kp = kv_positions[j:j + kv_chunk]
             s = torch.einsum("bqkgd,btkd->bkgqt", qc, ks.float()) * scale  # (B, KV, G, qc, kc)
@@ -90,7 +101,7 @@ def flash_attention(
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, qc, dv)
         outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qc, KV, G, dv)
-    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+    return torch.cat(all_trips(outs, n_q), dim=1)[:, :sq].to(q.dtype)
 
 
 def decode_attention(
@@ -103,16 +114,27 @@ def decode_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """Single-token attention over a cache: no chunking needed (Sq = 1).
-    The reference's ``CACHE_DTYPE_DOTS = False`` form: float32 products."""
-    dk = q.shape[-1]
-    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * (dk ** -0.5)
+    Float32 products, or with ``CACHE_DTYPE_DOTS`` products in the cache's
+    dtype."""
+    s = _decode_scores(q, k)
     mask = (kv_positions >= 0) & (kv_positions <= position)
     if window is not None:
         mask = mask & (kv_positions > position - window)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), v.float())
+    if CACHE_DTYPE_DOTS:
+        out = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype), v)
+    else:
+        out = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def _decode_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Scaled float32 scores (B, KV, G, 1, Skv) of a decode query."""
+    scale = q.shape[-1] ** -0.5
+    if CACHE_DTYPE_DOTS:
+        return torch.einsum("bqkgd,btkd->bkgqt", q.to(k.dtype), k).float() * scale
+    return torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * scale
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +344,9 @@ def decode_attention_partial(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Unnormalized single-token attention: (acc, m, l), with out = acc / l
     after merging the sources. Float32 products, the probabilities cast to
-    the value dtype before the second (the reference's
-    ``CACHE_DTYPE_DOTS = False`` branch)."""
-    dk = q.shape[-1]
-    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * (dk ** -0.5)
+    the value dtype before the second; with ``CACHE_DTYPE_DOTS`` both
+    products in the cache's dtype, each upcast after it."""
+    s = _decode_scores(q, k)
     mask = (kv_positions >= 0) & (kv_positions <= position)
     if window is not None:
         mask = mask & (kv_positions > position - window)
@@ -333,7 +354,10 @@ def decode_attention_partial(
     m = s.amax(-1)  # (B, KV, G, 1)
     p = torch.exp(s - m[..., None])
     l = p.sum(-1)
-    acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v.float())
+    if CACHE_DTYPE_DOTS:
+        acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype), v).float()
+    else:
+        acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v.float())
     return acc, m, l
 
 

@@ -7,11 +7,31 @@ weights, which cross over through ``transformer.params_from_jax``.
 """
 from __future__ import annotations
 
-import functools
+import struct
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# A long Python loop whose iterations run the same operators on the same
+# shapes (flash_attention's chunk pairs, the sLSTM's steps) iterates over
+# ``trips(n)`` and passes its per-iteration outputs through ``all_trips``.
+# With ``TRIPS`` unset both are the identity (``range(n)``; the list).
+# ``launch.op_analysis.OpCounter(sampled_loops=True)`` sets it to run only
+# the first iteration and count its operators n times.
+TRIPS = None
+
+
+def trips(n: int):
+    """The iteration indices of a marked loop: ``range(n)``."""
+    return range(n) if TRIPS is None else TRIPS(n)
+
+
+def all_trips(outs: list, n: int) -> list:
+    """A marked loop's ``n`` per-iteration outputs; where only the first
+    iteration ran, its output ``n`` times (the same shapes)."""
+    return outs if len(outs) == n else outs * n
 
 
 def truncated_normal_init(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -128,11 +148,19 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
 # Gated FFN (SwiGLU / GeGLU).
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
 def weak_scalar(value: float, dtype: torch.dtype) -> float:
     """A Python scalar as JAX's weak typing makes it against an array of
-    ``dtype``: rounded to that dtype."""
-    return torch.tensor(value, dtype=dtype).item()
+    ``dtype``: rounded to that dtype (as ``torch.tensor(value, dtype=dtype)``
+    rounds it: to float32, then to nearest even). Computed on the host with
+    no tensor, so it dispatches no operator."""
+    if dtype == torch.float64:
+        return float(value)
+    f32 = struct.unpack("<I", struct.pack("<f", value))[0]
+    if dtype == torch.bfloat16:
+        f32 = (f32 + 0x7FFF + ((f32 >> 16) & 1)) & 0xFFFF0000
+    elif dtype != torch.float32:
+        raise ValueError(f"no weak scalar of {dtype}")
+    return struct.unpack("<f", struct.pack("<I", f32))[0]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -222,7 +222,9 @@ class Transformer(nn.Module):
 
     ``seed`` draws every weight from one ``torch.Generator`` on the device;
     ``seed=None`` leaves them uninitialised (for :func:`params_from_jax`
-    and :func:`cast_weights`). ``weight_dtype`` is the dtype of the
+    and :func:`cast_weights`), as does the meta device, which holds shapes
+    and dtypes only (the dry run's, :mod:`repro_torch.launch.dryrun`).
+    ``weight_dtype`` is the dtype of the
     weights; those the reference reads in float32 (the norm scales, the MoE
     router, ``log_lambda``, the mLSTM gate biases) are float32 always. Runs
     on the card unless ``device="cpu"``.
@@ -232,7 +234,7 @@ class Transformer(nn.Module):
                  weight_dtype: torch.dtype = torch.float32):
         super().__init__()
         dev = resolve_device(device)
-        gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        gen = None if seed is None or dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab
         # d^-0.5 keeps tied-embedding logits O(1) at init.
@@ -251,7 +253,8 @@ class Transformer(nn.Module):
 
 
 def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Transformer:
-    """Random weights from ``seed`` (the reference's ``init_params(key, cfg)``)."""
+    """Random weights from ``seed`` (the reference's ``init_params(key, cfg)``);
+    on the meta device, shapes and dtypes only."""
     return Transformer(cfg, seed, device=device)
 
 

@@ -26,10 +26,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import (
+    all_trips,
     causal_conv,
     dense_weight,
     frozen_param,
     gelu,
+    trips,
     truncated_normal_init,
 )
 
@@ -293,10 +295,10 @@ def slstm_apply(
     st = init_slstm_state(b, d, device=x.device) if state is None else state
     xw = x @ p.w_gates.to(dtype)  # (B, S, 4d)
     hs = []
-    for t in range(s):
+    for t in trips(s):
         st = _slstm_cell(p, xw[:, t], st, n_heads=n_heads)
         hs.append(st["h"])
-    y = _slstm_up(p, torch.stack(hs, dim=1).to(dtype))
+    y = _slstm_up(p, torch.stack(all_trips(hs, s), dim=1).to(dtype))
     if return_state:
         return y, st
     return y

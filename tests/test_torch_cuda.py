@@ -35,7 +35,9 @@ with the frame oracle's entropies and contrast. The LM models (the
 attention families and the reduced MLA, MoE, RG-LRU and xLSTM ones) in
 float32 equal the CPU's within rtol = atol = 1e-4, serve the CPU's tokens,
 and make no host synchronization in a decode step; so do a train step of
-each (loss, gradient norm, updated parameters) and the paged decode. The adversarial inputs
+each (loss, gradient norm, updated parameters) and the paged decode. The
+op counter (``launch/op_analysis.py``) counts on the card what it counts on
+the meta device, operator for operator. The adversarial inputs
 come from ``repro_torch.data.adversarial``, as in ``chip_smoke.py``, and
 are shared with ``test_torch_kernels.py``.
 """
@@ -1256,3 +1258,36 @@ def test_lm_paged_decode_on_card_equals_cpu(cuda_dev):
     for cg, cc in zip(caches[cuda_dev], caches["cpu"]):
         for k in cc:
             torch.testing.assert_close(cg[k].cpu(), cc[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "moonshot-v1-16b-a3b", "xlstm-350m"])
+def test_op_counter_on_card_equals_meta_count(cuda_dev, arch):
+    """A decode step, a prefill and a train step of the tiny preset counted
+    by ``launch/op_analysis.py`` on the card and on the meta device: FLOPs,
+    bytes and operators equal, record for record (the dry run counts on the
+    meta device what the card runs)."""
+    from repro_torch.launch import op_analysis as O
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import Transformer, decode_step, prefill
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = reduced_config(arch, "tiny")
+    b, s = 2, 12
+
+    def counts(dev):
+        model = Transformer(cfg, None if dev.type == "meta" else 0, device=dev)
+        toks = torch.zeros(b, s, dtype=torch.int32, device=dev)
+        out = {"prefill": O.count(prefill, model, {"tokens": toks}, cache_len=s + 4)}
+        _, cache = prefill(model, {"tokens": toks}, cache_len=s + 4)
+        out["decode"] = O.count(decode_step, model, {"tokens": toks[:, :1]}, cache, s)
+        step = make_train_step(cfg, TrainConfig())
+        out["train"] = O.count(step, model, init_opt_state(model), {"tokens": toks, "labels": toks})
+        return out
+
+    card, meta = counts(cuda_dev), counts(torch.device("meta"))
+    for kind in card:
+        got = {k: (r.calls, r.flops, r.bytes) for k, r in card[kind].records.items()}
+        want = {k: (r.calls, r.flops, r.bytes) for k, r in meta[kind].records.items()}
+        assert got == want, kind

@@ -50,7 +50,9 @@ def test_every_module_of_the_port_is_covered():
               "repro_torch.serve.lm", "repro_torch.serve.engine", "repro_torch.launch",
               "repro_torch.launch.serve", "repro_torch.launch.train", "repro_torch.train",
               "repro_torch.train.optimizer", "repro_torch.train.train_step",
-              "repro_torch.train.checkpoint", "repro_torch.data.lm_data"):
+              "repro_torch.train.checkpoint", "repro_torch.data.lm_data",
+              "repro_torch.launch.mesh", "repro_torch.launch.op_analysis", "repro_torch.launch.roofline",
+              "repro_torch.launch.dryrun"):
         assert m in mods, m
     assert {p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu")} == {
         "cluster_accum", "patch_metrics", "window_pipeline",
@@ -82,6 +84,28 @@ def test_importing_every_module_loads_no_jax():
 def test_no_jax_or_reference_import_in_source(path):
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     assert not pat.findall(path.read_text()), path
+
+
+def test_dry_run_touches_no_card_and_sets_no_environment(tmp_path):
+    """Importing the dry run sets nothing in the environment (the
+    reference's sets ``XLA_FLAGS``), and a cell runs on the meta device
+    with every way into CUDA closed."""
+    code = (
+        "import os, sys, torch\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('the dry run reached for a card')\n"
+        "torch.cuda.is_available = torch.cuda.init = torch.cuda._lazy_init = torch.cuda.device_count = boom\n"
+        "env = dict(os.environ)\n"
+        "from repro_torch.launch import dryrun\n"
+        "assert dict(os.environ) == env\n"
+        f"rc = dryrun.main(['--arch', 'stablelm-3b', '--shape', 'decode_32k', '--mesh', 'both', '--out', {str(tmp_path)!r}])\n"
+        "print('RC', rc, len(os.listdir(" + repr(str(tmp_path)) + ")))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "RC 0 2" in out.stdout
 
 
 def _no_card():
@@ -186,7 +210,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("tool", [["torch_lm_teacher_bound.py"], ["torch_lm_phase.py", "10"],
-                                  ["torch_lm_phase.py", "11"]])
+                                  ["torch_lm_phase.py", "11"], ["torch_lm_phase.py", "12"]])
 def test_lm_tools_refuse_without_a_card(tool):
     """The LM tools run on the card unless told otherwise: with no
     ``--device`` and no card they exit non-zero before measuring."""

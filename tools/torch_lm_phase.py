@@ -3,14 +3,16 @@
 kept: phase 9c (Llama-3.2-1B at full width, depth 2, float32, card against
 CPU) or phase 10c (each family, one block-pattern cycle) repeated, phase
 10a (each family served at full width, without the teacher-forcing check),
-the whole of phase 10, or the whole of phase 11 (LM training at full width
-and the paged decode).
+the whole of phase 10, the whole of phase 11 (LM training at full width
+and the paged decode), or the whole of phase 12 (the launch tooling; run
+alone, it has no phase 9 or 11 medians to set its bounds beside).
 
     PYTHONPATH=src python tools/torch_lm_phase.py 9c --repeat 10
     PYTHONPATH=src python tools/torch_lm_phase.py 10c --repeat 3 [--arch A ...]
     PYTHONPATH=src python tools/torch_lm_phase.py 10a [--arch A ...]
     PYTHONPATH=src python tools/torch_lm_phase.py 10
     PYTHONPATH=src python tools/torch_lm_phase.py 11
+    PYTHONPATH=src python tools/torch_lm_phase.py 12
 
 A repeated run past its bound is recorded (with the message that names
 its reading) and the others still run; the script exits non-zero if any
@@ -34,7 +36,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("phase", choices=("9c", "10a", "10c", "10", "11"))
+    ap.add_argument("phase", choices=("9c", "10a", "10c", "10", "11", "12"))
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--arch", nargs="*", default=list(C.LM10_FAMILIES))
     args = ap.parse_args()
@@ -49,6 +51,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.phase == "11":
         C.phase11(dev, smi)
+        return 0
+    if args.phase == "12":
+        C.phase12(dev, smi)
         return 0
     if args.phase == "10":
         C.LM10_FAMILIES = {a: C.LM10_FAMILIES[a] for a in args.arch}
