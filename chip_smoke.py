@@ -169,6 +169,19 @@ Phases (any failure exits non-zero; no error is caught):
    (d) ``launch/dryrun.py`` over Llama-3.2-1B's three cells on both
    production meshes, every cell ok. Its summary is the line starting
    ``[12] {``.
+13. the multi-device slice on the one card (no TPU kernel changes; the
+   fleet path's kernels launch once a mesh block): (a) phase 4's fleet on
+   a 4-entry ``sensor`` mesh of the card (``FleetPipeline(mesh=...)``,
+   four blocks of 4 slots), every round equal to phase 4's unsharded
+   rounds, ``event_unpack``, ``cluster_accum`` and ``patch_metrics`` each
+   launched 4 times a step, the per-round latency beside phase 4's; (b)
+   ``ConstellationService`` with 2 shards of 2 mesh entries each and a
+   migration, every session equal to its dedicated stream; (c) the int8
+   collectives at world size 1 over NCCL on the card (their 4-rank gloo
+   group runs in the tests and in ``tools/torch_lm_phase.py 13``); (d)
+   ``examples/torch_multi_node_array.py --nodes 4``. Its summary is the
+   line starting ``[13] {``; the kernels line's fleet kernels carry
+   13a's launches as ``mesh_launches``.
 
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
@@ -307,6 +320,14 @@ CONST_CHURN_EVERY, CONST_MIGRATE_AT, CONST_REBALANCE_AT = 12, 30, 60
 CONST_STALL_SHARD, CONST_STALL, CONST_REVIVE_AT = 3, (80, 85), 100
 SHARD_CHAOS = dict(n_shards=4, n_sensors=16, n_faulty=4, n_rounds=96, seed=7, chunk_events=400,
                    burst_events=6000, queue_budget_events=3200)
+# Phase 13, the multi-device slice on the one card: 13a the phase-4 fleet
+# (16 sensors, seed 11 + s, the scale density) on a 4-entry sensor mesh
+# of the card, four blocks of 4 slots; 13b a constellation of 2 shards of
+# 2 entries each (tiers 4, 8), 8 sessions of phase 6's recordings over 60
+# rounds, one migrated at round 20; 13c the collectives at world size 1
+# over NCCL on the card; 13d examples/torch_multi_node_array.py --nodes 4.
+MESH_ENTRIES = 4
+MESH_CONST = dict(shards=2, entries=4, tiers=(4, 8), sessions=8, rounds=60, migrate_at=20)
 # Phase 8, the reference's other float routes: the four float route
 # configurations on the scale recording; the atlas of the ragged stream
 # over its first 10 s (compared every 50th feed) and over a 2 s cut with
@@ -1517,15 +1538,16 @@ class GcClock:
         gc.callbacks.remove(self._cb)
 
 
-def run_fleet(cfg, rounds, n, dev, sync_each: bool = False):
+def run_fleet(cfg, rounds, n, dev, sync_each: bool = False, mesh=None):
     """Feed every round and flush; returns the round results, the host ms
     of each round (closed by a synchronize when ``sync_each``), the ms of
-    garbage collection inside each round and the pipeline."""
+    garbage collection inside each round and the pipeline (sharded over
+    ``mesh`` when one is given)."""
     import torch
 
     from repro_torch.core.pipeline import FleetPipeline
 
-    fp = FleetPipeline(cfg, n_sensors=n, device=dev)
+    fp = FleetPipeline(cfg, n_sensors=n, device=dev, mesh=mesh)
     out, ms, gc_ms = [], [], []
     with GcClock() as clock:
         for chunks in rounds + [None]:
@@ -1699,7 +1721,7 @@ def check_full_fleet(cfg, recs, dev) -> dict:
     require_one_launch_per_block(prof, steps, "fleet profile")
     require(steps > 0 and ops.LAUNCHES["cluster_accum"] == ops.LAUNCHES["patch_metrics"] == steps,
             f"fleet profile: {steps} steps, launches {ops.LAUNCHES}")
-    return counts
+    return counts, sync, round_stats(lat)
 
 
 def check_stream(cfg, rec, scan, dev) -> tuple[dict, dict]:
@@ -4148,6 +4170,216 @@ def phase12(dev, smi: str, p9: dict | None = None, p11: dict | None = None) -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device slice on the one card.
+# ---------------------------------------------------------------------------
+
+def mesh13_fleet(cfg, recs, plain_sync, plain_lat, dev, smi: str) -> dict:
+    """13a: phase 4's fleet on a 4-entry sensor mesh of the card, every
+    round's stacked outputs equal to phase 4's unsharded rounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    n = len(recs)
+    mesh = make_mesh((MESH_ENTRIES,), ("sensor",), devices=[dev] * MESH_ENTRIES)
+    rounds = fleet_rounds(recs)
+    run_fleet(cfg, rounds[:20], n, dev, mesh=mesh)  # warm-up
+    ops.reset_launches()
+    sync, ms, _, fp = run_fleet(cfg, rounds, n, dev, sync_each=True, mesh=mesh)
+    counts = dict(ops.LAUNCHES)
+    steps = sum(1 for r in sync if r.clusters is not None)
+    require(all(counts[k] == MESH_ENTRIES * steps for k in FLEET_KERNELS),
+            f"[13a] {steps} steps on {MESH_ENTRIES} blocks, launches {counts}")
+    require(fp.state.atlas.spec == ("sensor",) and all(a.spec == ("sensor",) for a in fp.state.tracks),
+            f"[13a] carry specs {fp.state.atlas.spec}")
+    require(len(sync) == len(plain_sync), f"[13a] {len(sync)} rounds against {len(plain_sync)}")
+    for i, (a, b) in enumerate(zip(sync, plain_sync)):
+        require(np.array_equal(a.n_windows, b.n_windows), f"[13a] round {i}: windows differ")
+        if b.clusters is None:
+            require(a.clusters is None, f"[13a] round {i}: clusters")
+            continue
+        for group in ("clusters", "tracks", "final_tracks"):
+            for f, u, v in zip(getattr(b, group)._fields, getattr(a, group), getattr(b, group)):
+                equal(u, v, f"[13a] round {i}: {group}.{f}")
+        for k in b.metrics:
+            equal(a.metrics[k], b.metrics[k], f"[13a] round {i}: {k}")
+    lat = round_stats(ms[:-1])
+    log(f"[13a] fleet on a {MESH_ENTRIES}-entry sensor mesh of the one card ({smi}): {n} sensors, "
+        f"{len(rounds)} rounds + flush, {steps} steps of {MESH_ENTRIES} blocks; every round's "
+        f"clusters, metrics, per-window tracks and final carry equal to phase 4's unsharded fleet; "
+        f"carry spec ('sensor',); launches {counts} ({counts['cluster_accum'] / (len(rounds) + 1):.3f} "
+        f"a round of each kernel, {MESH_ENTRIES} a step)")
+    log(f"    per-round latency (host clock, synchronize per round): p50 {lat['p50']:.3f} ms, p99 "
+        f"{lat['p99']:.3f} ms, max {lat['max']:.3f} ms (budget {BUDGET_MS} ms); phase 4's unsharded "
+        f"fleet in this run: p50 {plain_lat['p50']:.3f} ms, p99 {plain_lat['p99']:.3f} ms, max "
+        f"{plain_lat['max']:.3f} ms")
+    return dict(launches=counts, steps=steps, rounds=len(rounds), latency=lat, plain_latency=plain_lat)
+
+
+def mesh13_constellation(cfg, dev) -> dict:
+    """13b: 2 shards of 2 mesh entries each on the one card, a migration,
+    every session equal to its dedicated stream on the card."""
+    import torch
+
+    from repro_torch.core.pipeline import StreamingPipeline
+    from repro_torch.data.evas import iter_chunks
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AdmissionConfig, ConstellationService
+    from repro_torch.serve.chaos import _FakeClock
+
+    c = MESH_CONST
+    recs = service_recordings(c["sessions"])
+    chunks = [list(iter_chunks(rec, CHUNK_US)) for rec in recs]
+    clock = _FakeClock()
+    cs = ConstellationService(cfg, n_shards=c["shards"], tiers=c["tiers"], devices=[dev] * c["entries"],
+                              admission=AdmissionConfig(max_delay_s=0.02, max_items=250 * 16),
+                              clock=clock, sleep=lambda s: None)
+    require([len(cs.shard(i).devices) for i in range(c["shards"])] == [2] * c["shards"]
+            and all(cs.shard(i).mesh is not None for i in range(c["shards"])),
+            f"[13b] shard groups {[cs.shard(i).devices for i in range(c['shards'])]}")
+    gids = [cs.attach(rec.name) for rec in recs]
+    fed = {g: [] for g in gids}
+    parts = {g: [] for g in gids}
+    ms = []
+    ops.reset_launches()
+    for r in range(c["rounds"]):
+        t0 = time.perf_counter()
+        clock.now += CHUNK_US / 1e6
+        got = []
+        if r == c["migrate_at"]:
+            cs.migrate(gids[0], 1 - cs.shard_of(gids[0]))
+        for k, g in enumerate(gids):
+            if r < len(chunks[k]):
+                fed[g].append(chunks[k][r])
+                got += cs.feed(g, *chunks[k][r])
+        got += cs.pump(force=True)
+        for f in got:
+            parts[f.gid].append(f.result)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    for g in gids:
+        parts[g].append(cs.detach(g))
+    cs.drain()
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    path_launches("float", counts, "[13b] constellation on shard meshes")
+    require(cs.migrations == 1, f"[13b] migrations {cs.migrations}")
+    ratio = cs.exchange.stats["compression_ratio"]
+    require(ratio > 3.0, f"[13b] compression ratio {ratio}")
+    windows = 0
+    for g in gids:
+        sp = StreamingPipeline(cfg, wire="ragged", device=dev)
+        want = [sp.feed(*ch) for ch in fed[g]] + [sp.flush()]
+        compare_parts(concat_parts(parts[g]), concat_parts(want),
+                      f"[13b] session {g} vs its dedicated stream")
+        windows += sum(p.num_windows for p in parts[g])
+    lat = round_stats(ms)
+    log(f"[13b] constellation of {c['shards']} shards x 2 mesh entries on the one card (tiers "
+        f"{c['tiers']}): {c['sessions']} sessions, {c['rounds']} rounds, session {gids[0]} migrated at "
+        f"round {c['migrate_at']}; {windows} windows, every session, detach tail included, equal to "
+        f"its dedicated StreamingPipeline on the card; compression_ratio {ratio:.3f}; launches "
+        f"{counts}; per-round p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms, max {lat['max']:.3f} ms")
+    return dict(launches=counts, windows=windows, compression_ratio=ratio, latency=lat)
+
+
+def mesh13_collectives(dev) -> dict:
+    """13c: the int8 collectives at world size 1 over NCCL on the card
+    (see :func:`mesh13_gloo` for the group of four)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compression as C
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev.index)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(13)
+        x = torch.randn(1 << 20, generator=gen, device=dev)
+        q, scale = C.quantize_int8(x)
+        out = C.compressed_psum_int8(x)
+        equal(out, q.to(torch.float32) * scale, "[13c] compressed_psum_int8 of one rank")
+        tree = C.dp_grad_sync_int8({"w": x[:4096].reshape(64, 64), "b": x[:3]})
+        equal(tree["w"].reshape(-1), C.compressed_psum_int8(x[:4096]), "[13c] dp_grad_sync_int8")
+        require(C.ring_allreduce_int8(x) is x, "[13c] ring_allreduce_int8 of one rank")
+        try:
+            C.compressed_psum_int8(x.cpu())
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, "[13c] a CPU tensor on a NCCL group was not refused")
+        psum_ms = cuda_ms(lambda: C.compressed_psum_int8(x), iters=20)
+    finally:
+        dist.destroy_process_group()
+    log(f"[13c] collectives at world size 1 over NCCL on the card: compressed_psum_int8 of 2^20 "
+        f"float32 equal to the rank's own dequantized payload, {psum_ms:.4f} ms a call (CUDA events); "
+        f"dp_grad_sync_int8 leaf for leaf; ring_allreduce_int8 returns its input; a CPU tensor "
+        f"refused. The 4-rank gloo group runs in the tests and in tools/torch_lm_phase.py 13")
+    return dict(psum_ms=psum_ms)
+
+
+def mesh13_gloo() -> dict:
+    """The int8 collectives in a 4-rank gloo group on this machine's CPU
+    (one card forms no NCCL group of more than one rank), held by
+    ``tools/torch_collective_ranks.py``'s check. Run by
+    ``tools/torch_lm_phase.py 13``, not by the script: it measures nothing
+    on the card, and the tests run the same group against the reference."""
+    import shutil
+
+    out_dir = ROOT / "build" / "collective_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_collective_ranks.py"), str(out_dir)],
+                          env=env, capture_output=True, text=True, timeout=120)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[13c] the 4-rank gloo group failed: {proc.stderr[-3000:]}")
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_collective_ranks as R
+
+    errs = R.check(out_dir)
+    log(f"[13c] a 4-rank gloo group on this machine's CPU (not the card), {wall:.1f} s with its "
+        f"start-up: every rank's output equal to every other's, largest error against the float32 "
+        f"mean {json.dumps(errs)}, each ring hop one chunk of int16")
+    return dict(gloo_wall_s=wall, errors=errs)
+
+
+def mesh13_node_array() -> dict:
+    """13d: examples/torch_multi_node_array.py --nodes 4 on the card."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT / "src"),
+                                                                    os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_multi_node_array.py"),
+                           "--nodes", "4"], env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0 and "equal to one call over the stacked array" in proc.stdout,
+            f"[13d] node array: rc {proc.returncode}, {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    log(f"[13d] examples/torch_multi_node_array.py --nodes 4 ({wall:.1f} s): " + " | ".join(lines[-3:]))
+    return dict(wall_s=wall, lines=lines[-3:])
+
+
+def phase13(cfg, fleet_recs, fleet_sync, fleet_lat, dev, smi: str) -> dict:
+    """Phase 13, the multi-device slice on the card, with no error caught."""
+    t13 = time.perf_counter()
+    out = dict(mesh=mesh13_fleet(cfg, fleet_recs, fleet_sync, fleet_lat, dev, smi))
+    out["constellation"] = mesh13_constellation(cfg, dev)
+    out["collectives"] = mesh13_collectives(dev)
+    out["node_array"] = mesh13_node_array()
+    log(f"[13] {json.dumps(out)}")
+    log(f"[13] phase wall time {time.perf_counter() - t13:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4276,7 +4508,7 @@ def main() -> int:
     kernels["event_unpack"]["max_abs_err"] = max(
         kernels["event_unpack"]["max_abs_err"], phase2_err)
     launches["event_unpack"] = stream_counts["event_unpack"]
-    fleet_counts = check_full_fleet(cfg, fleet_recs, dev)
+    fleet_counts, fleet_sync, fleet_lat = check_full_fleet(cfg, fleet_recs, dev)
 
     # Phase 5: the kernels ran on their paths.
     path_kernels = [k for k in REPLACES if k not in NO_PATH]
@@ -4323,6 +4555,11 @@ def main() -> int:
     # cache-dtype decode products.
     phase12(dev, smi, p9, p11)
 
+    # Phase 13: the multi-device slice on the one card (a 4-entry sensor
+    # mesh, 2 shards of 2 entries) and the collectives; each run's
+    # counters set to 0 just before it.
+    p13 = phase13(cfg, fleet_recs, fleet_sync, fleet_lat, dev, smi)
+
     rows = []
     for name, r in kernels.items():
         row = dict(
@@ -4354,6 +4591,12 @@ def main() -> int:
             row["constellation_launches_on"] = (
                 f"ConstellationService, float path, {CONST_SHARDS} shards, {CONST_ROUNDS} rounds; "
                 f"shard_chaos_launches: ShardChaosHarness.run, {SHARD_CHAOS['n_rounds']} rounds")
+        if name in FLEET_KERNELS:
+            row["mesh_launches"] = p13["mesh"]["launches"][name]
+            row["mesh_launches_on"] = (
+                f"FleetPipeline on a {MESH_ENTRIES}-entry sensor mesh of the one card, "
+                f"{FLEET_SENSORS} sensors, {p13['mesh']['rounds']} rounds + flush "
+                f"({p13['mesh']['steps']} steps, {MESH_ENTRIES} blocks a step)")
         if name in NO_PATH:
             row["path"] = "no path (tests only, as in the reference); launches are phase 2's"
         else:

@@ -28,6 +28,7 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.grid_clustering import Clusters
 from repro_torch.core.pipeline.config import PipelineConfig
 from repro_torch.core.pipeline.scan import _many_scan_raw, run_recording_scan
+from repro_torch.distributed.sharding import assemble
 
 if TYPE_CHECKING:
     from repro_torch.data.synthetic import Recording
@@ -288,8 +289,8 @@ def collect_candidates_fleet(
     over the ragged wire, fed whole in one round, then flushed, and one
     batched match runs over the stacked fleet outputs. Padded window rows
     hold no valid cluster, so each recording's result equals
-    :func:`collect_candidates_many`'s. ``mesh`` raises, as the fleet does
-    (not ported yet)."""
+    :func:`collect_candidates_many`'s. ``mesh`` (a mesh of devices with a
+    ``sensor`` axis) shards the fleet, which changes no result."""
     from repro_torch.core.pipeline.fleet import FleetPipeline
 
     if not recordings:
@@ -302,7 +303,8 @@ def collect_candidates_fleet(
     if not parts:  # nothing closed anywhere (all-empty recordings)
         empty = lambda: Candidates(np.zeros(0, np.int32), np.zeros(0, bool), np.zeros(0, np.int32))  # noqa: E731
         return [empty() for _ in recordings]
-    cl = Clusters(*(torch.cat(f, dim=1) for f in zip(*(p.clusters for p in parts))))
+    cl = Clusters(*(torch.cat([assemble(a) for a in f], dim=1)
+                    for f in zip(*(p.clusters for p in parts))))
     # Sensor s fills rows [0, n_head) of the feed's block and [w_head,
     # w_head + n_tail) of the flush's.
     offsets = np.cumsum([0] + [p.clusters.count.shape[1] for p in parts])[:-1]

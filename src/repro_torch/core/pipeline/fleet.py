@@ -39,8 +39,19 @@ loop over the window axis updates every sensor together.
   it is done (:class:`PendingRound`). A staging set is refilled only
   after its previous borrower's event has completed. On the CPU every
   round completes before ``feed`` returns.
-
-A device mesh is not supported yet (ROADMAP §1 item 7).
+* **Mesh.** ``mesh=`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`
+  with a ``sensor`` axis) places the carry by
+  :func:`~repro_torch.distributed.sharding.shard_fleet_carry`: a pool
+  whose capacity divides the axis is held as one block of S/n slots a
+  ``sensor`` entry, on that entry's device, and otherwise replicated. The
+  round's host packing is shared; ``hint_wire`` places the wire as the
+  carry (the 1-D streams replicated, the CSR offsets split by sensor),
+  and every block decodes its own rows from the whole wire and runs the
+  step on its slots, on its device, so each kernel of the step launches
+  once a block. Nothing crosses between
+  sensors, so the outputs equal the unsharded fleet's to the bit. The
+  round's stacked outputs are ``Placed`` leaves laid out like the carry;
+  slot surgery, growth and shrinking keep the placement.
 """
 from __future__ import annotations
 
@@ -73,7 +84,17 @@ from repro_torch.core.pipeline.config import PipelineConfig, atlas_shape
 from repro_torch.core.pipeline.scan import ScanResult, make_core
 from repro_torch.core.pipeline.stream import empty_scan_result, tag_limit
 from repro_torch.core.tracking import TrackState, init_tracks, tracks_from_numpy
-from repro_torch.distributed.sharding import grow_fleet_carry, shrink_fleet_carry
+from repro_torch.distributed.sharding import (
+    SENSOR_AXIS,
+    Placed,
+    grow_fleet_carry,
+    hint_wire,
+    join_sensor_blocks,
+    sensor_blocks,
+    shard_fleet_carry,
+    shrink_fleet_carry,
+)
+from repro_torch.launch.mesh import DeviceMesh, tensor_device, use_mesh
 
 _EMPTY = np.zeros(0, np.int64)
 _EMPTY_CHUNK = (_EMPTY, _EMPTY, _EMPTY, _EMPTY)
@@ -120,8 +141,8 @@ class FleetState:
     stacked (leading sensor dim) atlas and tracker carries on the device."""
 
     cursors: list[SensorCursor]
-    atlas: torch.Tensor  # (S, H+1, max(W, cap)) int32
-    tracks: TrackState  # leaves (S, T)
+    atlas: torch.Tensor | Placed  # (S, H+1, max(W, cap)) int32
+    tracks: TrackState  # leaves (S, T), laid out as the atlas
 
     @property
     def n_sensors(self) -> int:
@@ -258,7 +279,8 @@ class FleetResult:
     :meth:`sensor` materializes one sensor's trimmed
     :class:`~repro_torch.core.pipeline.scan.ScanResult` from host copies
     of the leaves, made once per round at first use, so its tensors lie
-    on the CPU.
+    on the CPU. Under a mesh the stacked leaves are ``Placed``, laid out
+    as the carry.
     """
 
     n_windows: np.ndarray  # (S,) real windows closed this round
@@ -270,7 +292,7 @@ class FleetResult:
     _config: PipelineConfig
     _with_tracking: bool
     _carry_tracks: TrackState  # (S, T) carry after this round
-    _event: object | None = None  # torch.cuda.Event after the round's last launch
+    _events: tuple = ()  # a torch.cuda.Event a device, after the round's last launch
     _host: tuple | None = None
     # (S,) int32 n_windows on the round's device (None if nothing closed):
     # device-side consumers read it without a host-to-device copy.
@@ -286,11 +308,11 @@ class FleetResult:
 
     def ready(self) -> bool:
         """True once the device work behind this round has completed."""
-        return self._event is None or self._event.query()
+        return all(e.query() for e in self._events)
 
     def block_until_ready(self) -> "FleetResult":
-        if self._event is not None:
-            self._event.synchronize()
+        for e in self._events:
+            e.synchronize()
         return self
 
     def _host_view(self) -> tuple:
@@ -469,7 +491,9 @@ class FleetPipeline:
     force-closes trailing windows. :meth:`feed_async` returns the round
     as a :class:`PendingRound` without waiting for the device;
     ``staging_depth`` staging sets per shape let that many rounds be in
-    flight.
+    flight. ``mesh=`` shards the carry and the step over the mesh's
+    ``sensor`` axis (see the module docstring); the pool then runs on the
+    mesh's devices, and ``device`` is not used.
     """
 
     def __init__(
@@ -483,11 +507,8 @@ class FleetPipeline:
         wire: str = "ragged",
         device: str | torch.device = DEFAULT_DEVICE,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetPipeline(mesh=...) is not ported yet (ROADMAP §1 item 7: "
-                "mesh sharding of the fleet carry)"
-            )
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"FleetPipeline takes a mesh of devices (launch.mesh.make_mesh), got {mesh!r}")
         if n_sensors < 1:
             raise ValueError(f"n_sensors must be >= 1, got {n_sensors}")
         if wire not in ("dense", "ragged"):
@@ -496,12 +517,18 @@ class FleetPipeline:
         self.n_sensors = n_sensors
         self.with_tracking = with_tracking
         self.wire = wire
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            on_card = self.device.type == "cuda"
+        else:
+            self.device = tensor_device(mesh.first_device)
+            on_card = any(d.type == "cuda" for d in mesh.devices.flat)
         self.wire_stats = WireStats()
         self._step = make_fleet_step(config, with_tracking)
         self._wire = make_wire_fn(config.use_kernels) if wire == "ragged" else None
         self._tag_limit = tag_limit(config)
-        self._staging = _StagingPool(staging_depth, pinned=self.device.type == "cuda")
+        self._staging = _StagingPool(staging_depth, pinned=on_card)
         if state is not None and state.n_sensors != n_sensors:
             raise ValueError(
                 f"state has {state.n_sensors} sensors, pipeline expects {n_sensors}"
@@ -511,11 +538,14 @@ class FleetPipeline:
     def init_state(self) -> FleetState:
         s = self.n_sensors
         tracks = init_tracks(self.config.tracker, self.device)
+        atlas, tracks = shard_fleet_carry((
+            torch.zeros((s,) + atlas_shape(self.config), dtype=torch.int32, device=self.device),
+            TrackState(*(a.new_zeros((s,) + tuple(a.shape)) for a in tracks)),
+        ), self.mesh)
         return FleetState(
             cursors=[SensorCursor(pending=_EMPTY_CHUNK) for _ in range(s)],
-            atlas=torch.zeros((s,) + atlas_shape(self.config), dtype=torch.int32,
-                              device=self.device),
-            tracks=TrackState(*(a.new_zeros((s,) + tuple(a.shape)) for a in tracks)),
+            atlas=atlas,
+            tracks=tracks,
         )
 
     def feed(self, chunks, final=False) -> FleetResult:
@@ -542,10 +572,11 @@ class FleetPipeline:
         final[list(slots)] = True
         return self._ingest([None] * self.n_sensors, final=final).result()
 
-    def _slot_mask(self, slots) -> torch.Tensor:
-        mask = np.zeros(self.n_sensors, bool)
-        mask[list(slots)] = True  # IndexError on out-of-range slots, pre-mutation
-        return torch.as_tensor(mask, device=self.device)
+    @staticmethod
+    def _blockwise(leaf, fn):
+        """``fn(block, lo, hi)`` over the sensor blocks a carry leaf is held
+        in, joined back into the leaf's layout."""
+        return join_sensor_blocks([fn(t, lo, hi) for lo, hi, _, t in sensor_blocks(leaf)], leaf)
 
     def reset_slots(self, slots) -> None:
         """Zero the named slots' carries (cursor, atlas slice, tracker
@@ -555,12 +586,17 @@ class FleetPipeline:
         slots = list(slots)
         if not slots:
             return
-        mask = self._slot_mask(slots)
+        mask = np.zeros(self.n_sensors, bool)
+        mask[slots] = True  # IndexError on out-of-range slots, pre-mutation
         st = self.state
         for s in slots:
             st.cursors[s] = SensorCursor(pending=_EMPTY_CHUNK)
-        zero = lambda a: torch.where(  # noqa: E731
-            mask.view((-1,) + (1,) * (a.dim() - 1)), torch.zeros_like(a), a)
+
+        def zero_block(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+            m = torch.as_tensor(mask[lo:hi], device=t.device)
+            return torch.where(m.view((-1,) + (1,) * (t.dim() - 1)), torch.zeros_like(t), t)
+
+        zero = lambda a: self._blockwise(a, zero_block)  # noqa: E731
         self.state = FleetState(
             cursors=st.cursors,
             atlas=zero(st.atlas),
@@ -599,10 +635,15 @@ class FleetPipeline:
         if ref != got:
             raise ValueError(f"carry tracker shapes {got} do not match this pool's ({ref})")
 
-        def put(a: torch.Tensor, row) -> torch.Tensor:
-            out = a.clone()
-            out[slot] = torch.as_tensor(np.asarray(row), dtype=a.dtype, device=a.device)
-            return out
+        def put(a, row):
+            def put_block(t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+                if not lo <= slot < hi:
+                    return t
+                out = t.clone()
+                out[slot - lo] = torch.as_tensor(np.asarray(row), dtype=t.dtype, device=t.device)
+                return out
+
+            return self._blockwise(a, put_block)
 
         st.cursors[slot] = copy.copy(carry.cursor)
         self.state = FleetState(
@@ -622,7 +663,7 @@ class FleetPipeline:
         if new_capacity == self.n_sensors:
             return
         st = self.state
-        atlas, tracks = grow_fleet_carry((st.atlas, st.tracks), new_capacity)
+        atlas, tracks = grow_fleet_carry((st.atlas, st.tracks), new_capacity, self.mesh)
         cursors = st.cursors + [
             SensorCursor(pending=_EMPTY_CHUNK) for _ in range(new_capacity - len(st.cursors))
         ]
@@ -647,7 +688,7 @@ class FleetPipeline:
         if new_capacity == self.n_sensors:
             return
         st = self.state
-        atlas, tracks = shrink_fleet_carry((st.atlas, st.tracks), new_capacity)
+        atlas, tracks = shrink_fleet_carry((st.atlas, st.tracks), new_capacity, self.mesh)
         self.n_sensors = new_capacity
         self.state = FleetState(cursors=st.cursors[:new_capacity], atlas=atlas, tracks=tracks)
 
@@ -745,8 +786,6 @@ class FleetPipeline:
 
         staging.meta[0] = tag0
         staging.meta[1] = n_valid
-        dev = self.device
-        ship = lambda a: a.to(dev, non_blocking=True)  # noqa: E731
         if ragged:
             n_pad = wire_pad(wire_base)
             m = sum(b.shape[1] for b in spill_blocks)
@@ -766,25 +805,52 @@ class FleetPipeline:
             wire_b = ragged_wire_bytes(n_pad, s_count, w_max, m_pad)
         else:
             wire_b = dense_wire_bytes(s_count, w_max, cap)
-        atlas_in = st.atlas
-        if reset.any():  # rare: tag-epoch rollover on some sensor(s)
-            mask = torch.as_tensor(reset, device=dev)[:, None, None]
-            atlas_in = torch.where(mask, 0, atlas_in)
-        if ragged:
-            with record_function("wire decode"):
-                packed_in, valid_in = self._wire(*(ship(v) for v in views), cap)
-        else:
-            packed_in, valid_in = ship(staging.packed_t), ship(staging.valid_t)
-        meta = ship(staging.meta_t)
-        if meta is staging.meta_t:  # no copy on the CPU; the set is refilled later
-            meta = meta.clone()
-        final_tracks, clusters, mets, states, atlas = self._step(
-            packed_in, valid_in, st.tracks, atlas_in, meta,
-        )
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
+        # The round's wire laid out as the carry (sensor_blocks): under a
+        # mesh the hints put each block's rows, and one copy of the ragged
+        # streams, on its device; without one they are the host buffers,
+        # shipped whole to the pool's one block.
+        surfaces = (dict(words=views[0], dt=views[1], pol=views[2], offsets=views[3], spill=views[4])
+                    if ragged else dict(packed=staging.packed_t, valid=staging.valid_t))
+        with use_mesh(self.mesh if self.mesh is not None and SENSOR_AXIS in self.mesh.axis_names else None):
+            wire = hint_wire(meta=staging.meta_t, **surfaces)
+
+        def part(name: str, coord, dev: torch.device) -> torch.Tensor:
+            leaf = wire[name]
+            if isinstance(leaf, Placed):
+                return leaf.shard(coord)
+            got = leaf.to(dev, non_blocking=True)
+            # n_windows_t outlives the staging set: no alias on the CPU.
+            return got.clone() if got is leaf and name == "meta" else got
+
+        outs, metas, cards = [], [], []
+        track_blocks = [sensor_blocks(a) for a in st.tracks]
+        for b, (lo, hi, coord, atlas_in) in enumerate(sensor_blocks(st.atlas)):
+            dev = atlas_in.device
+            meta = part("meta", coord, dev)
+            if reset[lo:hi].any():  # rare: tag-epoch rollover on some sensor(s)
+                mask = torch.as_tensor(reset[lo:hi], device=dev)[:, None, None]
+                atlas_in = torch.where(mask, 0, atlas_in)
+            if ragged:
+                with record_function("wire decode"):
+                    packed_in, valid_in = self._wire(
+                        *(part(k, coord, dev) for k in ("words", "dt", "pol", "offsets", "spill")), cap)
+            else:
+                packed_in, valid_in = part("packed", coord, dev), part("valid", coord, dev)
+            tracks_in = TrackState(*(blocks[b][3] for blocks in track_blocks))
+            outs.append(self._step(packed_in, valid_in, tracks_in, atlas_in, meta))
+            metas.append(meta[1])
+            if dev.type == "cuda" and dev not in cards:
+                cards.append(dev)
+        join = lambda parts: join_sensor_blocks(list(parts), st.atlas)  # noqa: E731
+        joined = lambda tree_of: (  # noqa: E731
+            None if outs[0][tree_of] is None else type(outs[0][tree_of])(
+                *(join(p) for p in zip(*(o[tree_of] for o in outs)))))
+        final_tracks, clusters, states = joined(0), joined(1), joined(3)
+        mets = {k: join(o[2][k] for o in outs) for k in outs[0][2]}
+        atlas = join(o[4] for o in outs)
+        events = tuple(torch.cuda.Event() for _ in cards)
+        for e, dev in zip(events, cards):
+            e.record(torch.cuda.current_stream(dev))
         self.wire_stats.rounds += 1
         self.wire_stats.events += events_total
         self.wire_stats.wire_bytes += wire_b
@@ -796,7 +862,7 @@ class FleetPipeline:
             tracks=states if self.with_tracking else None,
             final_tracks=final_tracks,
             _config=self.config, _with_tracking=self.with_tracking,
-            _carry_tracks=final_tracks, _event=event, n_windows_t=meta[1],
+            _carry_tracks=final_tracks, _events=events, n_windows_t=join(metas),
         ))
         staging.inflight = pending
         return pending

@@ -4,9 +4,8 @@ of ``repro.data.lm_data``.
 A deterministic Zipf-ish Markov stream: learnable structure (so a ~100M
 model's loss visibly drops within a few hundred steps) without external
 data. The same ``numpy`` generator as the reference's, so a seed draws
-the same tokens in both packages; :func:`batches` puts them on a device.
-The reference's ``sharded_batches`` (a ``NamedSharding`` a batch) waits
-for the device mesh (ROADMAP item 7).
+the same tokens in both packages; :func:`batches` puts them on a device,
+:func:`sharded_batches` lays them out over a mesh of devices.
 """
 from __future__ import annotations
 
@@ -54,3 +53,15 @@ def batches(vocab: int, batch: int, seq: int, n_steps: int, seed: int = 0, *, de
             yield {"tokens": toks[:, :-1].contiguous().to(dev), "labels": toks[:, 1:].contiguous().to(dev)}
 
     return gen_batches()
+
+
+def sharded_batches(vocab: int, batch: int, seq: int, n_steps: int, sharding, seed: int = 0
+                    ) -> Iterator[dict]:
+    """:func:`batches` with every leaf placed by ``sharding`` (a
+    :func:`~repro_torch.distributed.sharding.named` placement over a mesh
+    of devices, e.g. the batch over the ``data`` axis): ``Placed`` leaves
+    holding each entry's rows on its device."""
+    from repro_torch.distributed.sharding import place
+
+    for b in batches(vocab, batch, seq, n_steps, seed, device="cpu"):
+        yield {k: place(v, sharding) for k, v in b.items()}

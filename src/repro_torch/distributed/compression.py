@@ -15,10 +15,25 @@ the last bit for some ``amax``. ``jit_scale=True`` gives that second
 form; the exchange (:mod:`repro_torch.serve.constellation`) uses it,
 because the reference's exchange runs the quantizer under ``jax.jit``.
 
-The int8 collectives of the reference (``compressed_psum_int8``,
-``dp_grad_sync_int8``, ``ring_allreduce_int8``) run over a device mesh
-and drive data-parallel training; they wait for the mesh (ROADMAP §1
-item 7).
+The int8 collectives, over a ``torch.distributed`` process group, one
+process a rank (the reference's run inside ``shard_map`` over a mesh
+axis; ``axis_name`` is the group here, and ``axis_size`` its size):
+
+* :func:`compressed_psum_int8` — all-reduce-mean with an int8 payload:
+  one scalar max aligns the ranks' scales, then the aligned int8 payloads
+  are summed widened to int32.
+* :func:`dp_grad_sync_int8` — that over every leaf of a gradient tree.
+* :func:`ring_allreduce_int8` — the two-phase ring (N-1 hops of
+  reduce-scatter, N-1 of all-gather), every hop carrying an int16 payload
+  of |x|/N elements of partial sums.
+
+They are written with the functional collectives (the ``_c10d_functional``
+operators, which :mod:`repro_torch.launch.op_analysis` counts by kind),
+in the reference's order of float operations. NCCL serves CUDA tensors
+and gloo CPU tensors; a tensor on the other kind of device raises, and
+nothing is copied across. Neither backend has a 16-bit integer type, so
+a ring hop ships its int16 payload's bytes (an int16 tensor viewed as
+uint8, 2|x|/N bytes) and views them back.
 """
 from __future__ import annotations
 
@@ -91,3 +106,142 @@ def ef_int8_roundtrip(grads: Any, opt_state: dict) -> tuple[Any, dict]:
     new_grads = _tree_map(lambda g, t: t[0], grads, out)
     new_ef = _tree_map(lambda g, t: t[1], grads, out)
     return new_grads, dict(opt_state, ef=new_ef)
+
+
+# ---------------------------------------------------------------------------
+# Int8 collectives over a process group.
+# ---------------------------------------------------------------------------
+
+def _group(group):
+    """The process group of ``group``: a ``ProcessGroup``, a 1-D
+    ``torch.distributed`` ``DeviceMesh``, or ``None`` for the default
+    group."""
+    import torch.distributed as dist
+
+    if group is None:
+        return dist.group.WORLD
+    if hasattr(group, "get_group"):
+        return group.get_group()
+    return group
+
+
+def _check_backend(x: torch.Tensor, pg) -> None:
+    import torch.distributed as dist
+
+    backend = str(dist.get_backend(pg)).lower()
+    served = {dev for name, dev in (("nccl", "cuda"), ("gloo", "cpu")) if name in backend}
+    if served and x.device.type not in served:
+        raise ValueError(
+            f"a {backend} group reduces {' and '.join(sorted(served))} tensors, got one on "
+            f"{x.device}; nothing is copied across"
+        )
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol.wait_tensor(t)
+
+
+def _all_reduce(t: torch.Tensor, op: str, pg) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    return _wait(funcol.all_reduce(t, op, pg))
+
+
+def _aligned_int8(x: torch.Tensor, pg) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank's int8 payload aligned to the group's largest scale, and
+    that scale: the first half of :func:`compressed_psum_int8`."""
+    q, scale = quantize_int8(x)
+    max_scale = _all_reduce(scale, "max", pg)
+    rescale = scale / max_scale
+    q_aligned = torch.round(q.to(torch.float32) * rescale).to(torch.int8)
+    return q_aligned, max_scale
+
+
+def compressed_psum_int8(x: torch.Tensor, group=None) -> torch.Tensor:
+    """All-reduce-mean of ``x`` over ``group`` with an int8 payload (an
+    int8 tensor and one float32 scale, against float32: about 4x fewer
+    bytes). Every rank returns the same tensor."""
+    import torch.distributed as dist
+
+    pg = _group(group)
+    _check_backend(x, pg)
+    q_aligned, max_scale = _aligned_int8(x, pg)
+    # Widened to int32 against overflow of the sum.
+    q_sum = _all_reduce(q_aligned.to(torch.int32), "sum", pg)
+    # The reference's psum of ones is the group's size, which every rank
+    # knows. A device tensor, not a Python number: CUDA would multiply by
+    # the reciprocal of a host scalar, which is not the division.
+    n = torch.full((), float(dist.get_world_size(pg)), dtype=torch.float32, device=x.device)
+    return q_sum.to(torch.float32) * max_scale / n
+
+
+def dp_grad_sync_int8(grads: Any, group=None) -> Any:
+    """:func:`compressed_psum_int8` over every leaf of a gradient tree."""
+    return _tree_map(lambda g: compressed_psum_int8(g, group), grads)
+
+
+def _hop(payload: torch.Tensor, rank: int, size: int, pg) -> torch.Tensor:
+    """Send ``payload`` (int16) to rank + 1 and return rank - 1's, as its
+    bytes: one all-to-all whose only nonzero splits are those two."""
+    import torch.distributed._functional_collectives as funcol
+
+    wire = payload.contiguous().view(torch.uint8)
+    ins, outs = [0] * size, [0] * size
+    ins[(rank + 1) % size] = wire.numel()
+    outs[(rank - 1) % size] = wire.numel()
+    return _wait(funcol.all_to_all_single(wire, outs, ins, pg)).view(torch.int16)
+
+
+def ring_allreduce_int8(x: torch.Tensor, group=None, axis_size: int | None = None) -> torch.Tensor:
+    """All-reduce-mean of ``x`` over ``group`` as a two-phase ring with
+    quantized payloads.
+
+    The tensor is flattened, zero-padded to a multiple of the group size N
+    and cut into N chunks; one scalar max aligns the scales and every rank
+    quantizes to int8. Reduce-scatter: N-1 hops, each sending the next
+    rank one chunk of int16 partial sums. All-gather: N-1 hops passing the
+    fully reduced chunks on. Every hop carries |x|/N int16 elements, half
+    the bytes of float32. ``axis_size``, if given, must be the group's
+    size; a group of one returns ``x``."""
+    import torch.distributed as dist
+
+    pg = _group(group)
+    size = dist.get_world_size(pg)
+    if axis_size is not None and axis_size != size:
+        raise ValueError(f"axis_size {axis_size} is not the group's size {size}")
+    if size == 1:
+        return x
+    _check_backend(x, pg)
+    rank = dist.get_rank(pg)
+    orig_shape = x.shape
+    n = x.numel()
+    pad = (-n) % size
+    flat = torch.nn.functional.pad(x.reshape(-1).to(torch.float32), (0, pad))
+    chunks = flat.reshape(size, -1)
+
+    _, scale = quantize_int8(chunks)
+    max_scale = _all_reduce(scale, "max", pg)
+    q = torch.round(chunks / max_scale).clamp(-127, 127).to(torch.int8)
+
+    # Phase 1: reduce-scatter. Partial sums leave int8's range after the
+    # first hop, so they travel as int16.
+    acc = q.to(torch.int16)
+    for i in range(size - 1):
+        recv = _hop(acc[(rank - i) % size], rank, size, pg)
+        recv_id = (rank - i - 1) % size
+        acc[recv_id] = acc[recv_id] + recv
+
+    # Phase 2: all-gather the owned (fully reduced) chunks.
+    owned_id = (rank + 1) % size
+    gathered = torch.zeros_like(acc)
+    payload = acc[owned_id]
+    gathered[owned_id] = payload
+    pid = owned_id
+    for _ in range(size - 1):
+        payload = _hop(payload, rank, size, pg)
+        pid = (pid - 1) % size
+        gathered[pid] = payload
+    out = gathered.to(torch.float32) * max_scale / size
+    return out.reshape(-1)[:n].reshape(orig_shape)

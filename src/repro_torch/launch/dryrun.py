@@ -20,8 +20,9 @@ card, no allocation, no process group) and records:
 * ``model_flops`` and ``useful_flops_ratio``.
 
 What has no counterpart is ``null``, its reason under ``"nulls"``: the
-collective bytes (no partitioner inserts collectives, so they stay null
-until a process group exists, ROADMAP items 7-8), temp and peak memory
+collective bytes (no partitioner inserts collectives into a step: the
+port's collectives are explicit calls over a process group, and an LM step
+makes none), temp and peak memory
 (nothing is compiled), the lowering and compile times and XLA's raw cost
 analysis. The count depends on the cell and the variant, not on the mesh:
 a sweep counts each once and reuses it for both meshes.
@@ -72,7 +73,7 @@ XLA_ONLY = {
 }
 
 NULLS = {
-    "coll_bytes_per_device": "no SPMD partitioner inserts collectives; null until a process group exists",
+    "coll_bytes_per_device": "no SPMD partitioner inserts collectives; the step makes no explicit one",
     "temp_size_in_bytes": "nothing is compiled, so no buffer is assigned",
     "peak_memory_in_bytes": "nothing is compiled, so no buffer is assigned",
     "t_lower_s": "nothing is lowered",

@@ -14,11 +14,17 @@ when there is none; the CPU is used only when the caller passes
 ``devices=["cpu"]``. :func:`partition_devices` splits the devices over
 the shards; with fewer devices than shards, shards share devices
 round-robin, so N shards on one card is the reference's own
-single-device layout (where it builds every shard without a mesh). Each
-shard then runs the unsharded service on its one device. A shard group
-of more than one distinct device would need the reference's per-shard
-``sensor`` mesh, which waits for mesh sharding of the fleet carry
-(ROADMAP §1 item 7): such a group raises ``NotImplementedError``.
+single-device layout (where it builds every shard without a mesh). A
+shard group of one device runs the unsharded service on it; a group of
+more than one gets a ``sensor`` mesh of its devices
+(:func:`~repro_torch.launch.mesh.make_mesh`), over which its service's
+fleet shards the carry, as the reference's per-shard meshes. The
+reference also gives a group of one device a one-entry mesh when there
+are several devices in all; that changes no result, so the port runs such
+a group unsharded. A device listed more than once stands in for as many
+devices: ``devices=["cuda"] * 4`` with two shards gives each shard a
+two-entry mesh on the one card, and ``torch.device("cpu", i)`` entries
+stand in for separate hosts.
 
 Layered on top of the per-shard services:
 
@@ -67,6 +73,8 @@ from repro_torch.core.pipeline.config import PipelineConfig
 from repro_torch.core.pipeline.fleet import DEFAULT_TIERS, PendingRound, WireStats
 from repro_torch.core.pipeline.scan import ScanResult
 from repro_torch.distributed.compression import dequantize_int8, quantize_int8
+from repro_torch.distributed.sharding import SENSOR_AXIS, assemble
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve.batcher import AdmissionConfig
 from repro_torch.serve.faults import FaultConfig
 from repro_torch.serve.service import DetectionService, ServedFeed
@@ -205,10 +213,12 @@ class CrossShardExchange:
         res = round_.result()
         if res.clusters is None:
             return None
+        # Under a shard mesh the leaves are sensor blocks: the plane is
+        # made from them assembled on the mesh's first device.
         return _summary_fn(
-            res.clusters.valid,
-            res.n_windows_t,
-            *[res.metrics[k] for k in sorted(res.metrics)],
+            assemble(res.clusters.valid),
+            assemble(res.n_windows_t),
+            *[assemble(res.metrics[k]) for k in sorted(res.metrics)],
         )
 
     def push_round(self, shard: int, round_: PendingRound) -> None:
@@ -305,12 +315,14 @@ class ConstellationFeed:
 
 @dataclasses.dataclass
 class _Shard:
-    """One shard's runtime record: the service, its device group (one
-    device here), and the constellation-side bookkeeping layered on it."""
+    """One shard's runtime record: the service, its device group and its
+    ``sensor`` mesh (``None`` for a group of one device), and the
+    constellation-side bookkeeping layered on it."""
 
     index: int
     service: DetectionService
     devices: tuple
+    mesh: object | None = None
     down: bool = False
     # Local sid -> global id for constellation-live sessions only;
     # entries leave when the session migrates or a local fault closes it.
@@ -385,16 +397,10 @@ class ConstellationService:
         self.auto_rebalance = auto_rebalance
         self.rescue_after_degraded_rounds = rescue_after_degraded_rounds
         groups = partition_devices(_resolve_devices(devices), n_shards)
+        self._shards: list[_Shard] = []
         for i, group in enumerate(groups):
-            if len(set(group)) > 1:
-                raise NotImplementedError(
-                    f"shard {i} spans devices {[str(d) for d in group]}: a shard group "
-                    "of more than one device needs mesh sharding of the fleet carry, "
-                    "not ported yet (ROADMAP §1 item 7); pass n_shards >= the number "
-                    "of devices, or one device"
-                )
-        self._shards: list[_Shard] = [
-            _Shard(
+            mesh = make_mesh((len(group),), (SENSOR_AXIS,), devices=group) if len(group) > 1 else None
+            self._shards.append(_Shard(
                 index=i,
                 service=DetectionService(
                     config,
@@ -402,6 +408,7 @@ class ConstellationService:
                     admission=admission,
                     faults=faults,
                     with_tracking=with_tracking,
+                    mesh=mesh,
                     clock=clock,
                     sleep=sleep,
                     max_inflight_rounds=max_inflight_rounds,
@@ -409,9 +416,8 @@ class ConstellationService:
                     device=group[0],
                 ),
                 devices=group,
-            )
-            for i, group in enumerate(groups)
-        ]
+                mesh=mesh,
+            ))
         self.exchange = CrossShardExchange(n_shards, exchange)
         self._routes: dict[int, tuple[int, int]] = {}  # gid -> (shard, lsid)
         self._closed: dict[int, tuple[int, int]] = {}  # gid -> last home
@@ -458,7 +464,7 @@ class ConstellationService:
         return [sh.index for sh in self._shards if sh.down]
 
     def shard(self, i: int) -> _Shard:
-        """Shard runtime record (service, devices, fault deltas)."""
+        """Shard runtime record (service, devices, mesh, fault deltas)."""
         return self._shards[i]
 
     def shard_of(self, gid: int) -> int:

@@ -203,7 +203,9 @@ class DetectionService:
     compressed event wire, the default — or ``"dense"``); outputs are
     bit-identical either way and per-round transfer sizes accumulate in
     :attr:`wire_stats`. ``device`` is where the fleet runs: the card
-    unless the caller asks for the CPU.
+    unless the caller asks for the CPU. ``mesh`` (a mesh of devices with
+    a ``sensor`` axis) is passed to the fleet, which then shards its slot
+    pool over the mesh's devices and does not use ``device``.
     """
 
     def __init__(
@@ -213,6 +215,7 @@ class DetectionService:
         admission: AdmissionConfig = AdmissionConfig(),
         faults: FaultConfig = FaultConfig(),
         with_tracking: bool = True,
+        mesh=None,
         clock: Callable[[], float] = time.monotonic,
         sleep: Callable[[float], None] = time.sleep,
         max_inflight_rounds: int = 1,
@@ -242,6 +245,7 @@ class DetectionService:
             config,
             n_sensors=self.tiers[0],
             with_tracking=with_tracking,
+            mesh=mesh,
             # One spare staging set beyond the deepest in-flight window,
             # so packing round N never waits on a buffer still borrowed
             # by an unretired round.

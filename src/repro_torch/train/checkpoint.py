@@ -18,8 +18,11 @@
 
 ``restore(template, step, device)`` rebuilds the template's tree with the
 template's dtypes, on ``device`` (every leaf a tensor there) or, without
-one, each tensor leaf on its template's device: the one-card counterpart
-of the reference's ``shardings=``.
+one, each tensor leaf on its template's device. ``shardings=`` (a tree of
+:func:`~repro_torch.distributed.sharding.named` placements, like the
+state's) then lays each leaf out by its mesh spec, whatever mesh the state
+was saved from: the reference's elastic re-shard path. A state of
+``Placed`` leaves saves as its global arrays.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import NamedSharding, Placed, place
 
 
 def _leaf_array(leaf, copy: bool) -> np.ndarray:
@@ -77,8 +81,22 @@ def _unflatten_into(template: Any, flat: dict[str, np.ndarray], device, prefix: 
     if isinstance(template, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(
             device=template.device if device is None else device, dtype=template.dtype)
+    if isinstance(template, Placed):
+        out = torch.from_numpy(np.array(arr)).to(template.dtype)
+        return place(out, template.sharding) if device is None else out.to(device)
     out = arr.astype(np.asarray(template).dtype)
     return out if device is None else torch.from_numpy(out).to(device)
+
+
+def _place_tree(state: Any, shardings: Any) -> Any:
+    """Every leaf of ``state`` placed by the matching leaf of ``shardings``."""
+    if isinstance(shardings, NamedSharding):
+        return place(state, shardings)
+    if shardings is None:
+        return state
+    if isinstance(state, dict):
+        return {k: _place_tree(v, shardings[k]) for k, v in state.items()}
+    return type(state)(_place_tree(v, s) for v, s in zip(state, shardings))
 
 
 class CheckpointManager:
@@ -131,9 +149,12 @@ class CheckpointManager:
         )
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: int | None = None, device=None) -> tuple[int, Any]:
+    def restore(self, template: Any, step: int | None = None, device=None,
+                shardings: Any = None) -> tuple[int, Any]:
         """Restore into ``template``'s structure and dtypes; see the module
-        docstring for where the leaves go."""
+        docstring for where the leaves go. ``shardings`` is a tree of the
+        state's structure whose ``NamedSharding`` leaves place theirs
+        (``None`` leaves, or a missing tree, leave them as restored)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -142,7 +163,10 @@ class CheckpointManager:
         path = self.dir / f"step_{step:08d}"
         with np.load(path / "arrays.npz") as z:
             flat = {k: z[k] for k in z.files}
-        return step, _unflatten_into(template, flat, None if device is None else resolve_device(device))
+        state = _unflatten_into(template, flat, None if device is None else resolve_device(device))
+        if shardings is not None:
+            state = _place_tree(state, shardings)
+        return step, state
 
     def _gc(self) -> None:
         steps = sorted(

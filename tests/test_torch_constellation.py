@@ -20,10 +20,11 @@ rtol = atol = 1e-5, tracker floats rtol 1e-6, atol 1e-4); summary planes
 with the window and cluster columns exact and the metric sums (float32
 sums in another order) within rtol 1e-5, atol 1e-4.
 
-A shard group of more than one device raises ``NotImplementedError``
-here (mesh sharding is ROADMAP §1 item 7), so the reference's
-four-device case (``tests/test_constellation.py::test_constellation_multidevice``)
-stays a reference-only test.
+A shard group of more than one device gets a ``sensor`` mesh of its
+devices; the reference's four-device case
+(``tests/test_constellation.py::test_constellation_multidevice``) runs
+against the port over ``torch.device("cpu", i)`` entries in
+``tests/test_torch_fleet_mesh.py``.
 """
 import dataclasses
 
@@ -123,17 +124,19 @@ def test_partition_devices():
 
 
 def test_multi_device_shard_group_raises():
-    """A group of more than one distinct device needs the mesh (ROADMAP
-    §1 item 7) and is refused before any service is built; shards that
-    share one device, spelled either way, run unsharded."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """A group of more than one device gets a mesh of its devices, which
+    holds only CPU or CUDA devices: a group with another kind is refused
+    before any service is built; shards that share one device, spelled
+    either way, run unsharded."""
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         ConstellationService(CONFIG, n_shards=1, devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         ConstellationService(CONFIG, n_shards=2, devices=["cpu", "meta", "cpu", "meta"])
     cs = ConstellationService(CONFIG, n_shards=3, devices=["cpu", torch.device("cpu")])
     assert [sh.devices for sh in cs._shards] == [(torch.device("cpu"),)] * 3
     assert {str(sh.service.device) for sh in cs._shards} == {"cpu"}
     assert cs.stats()["shards"][0]["devices"] == ["cpu"]
+    assert all(sh.mesh is None for sh in cs._shards)
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -26,7 +26,8 @@ to the bit. The event_unpack and grid_quantize_packed kernels compare to
 the bit; window_entropy to rtol 1e-5 (atol 1e-7 for exact zeros): its
 float32 sums run in another order than the plain version's, and log2f is
 not torch's log2. The fleet's asynchronous rounds equal its synchronous
-ones, and both each sensor's scan, to the bit; so does the stream over
+ones, and both each sensor's scan, to the bit, and so does the fleet
+sharded over a 4-entry mesh of the card equal the unsharded one; so does the stream over
 the ragged wire equal its scan. The frame oracle equals the event route
 on the card bit for bit; the atlas event core writes the CPU's atlas
 across forced tag rollovers, and its atlas update synchronizes nothing
@@ -630,6 +631,38 @@ def test_fleet_async_equals_sync_and_scan_on_card(cuda_dev):
             assert torch.equal(cat, getattr(scan.clusters, f).cpu()), f
         for f in scan.final_tracks._fields:
             assert torch.equal(getattr(parts[-1].final_tracks, f), getattr(scan.final_tracks, f).cpu()), f
+
+
+@pytest.mark.cuda
+def test_fleet_on_a_four_entry_mesh_of_the_card_equals_unsharded(cuda_dev):
+    """The fleet sharded over a 4-entry ``sensor`` mesh of the one card
+    (four blocks, each its own tensors) equals the unsharded fleet on the
+    card every round, to the bit; every kernel of the path launches once a
+    block a round, and the carry stays sharded."""
+    from repro_torch.core.pipeline import FleetPipeline, PipelineConfig
+    from repro_torch.data.synthetic import make_recording
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
+    recs = [make_recording(seed=20 + s, duration_s=0.3, n_rsos=1 + s % 2) for s in range(8)]
+    rounds = _fleet_rounds(recs)
+    mesh = make_mesh((4,), ("sensor",), devices=[cuda_dev] * 4)
+    plain = FleetPipeline(cfg, n_sensors=8, device=cuda_dev)
+    sharded = FleetPipeline(cfg, n_sensors=8, mesh=mesh)
+    want = [plain.feed(r) for r in rounds] + [plain.flush()]
+    ops.reset_launches()
+    got = [sharded.feed(r) for r in rounds] + [sharded.flush()]
+    steps = sum(1 for g in got if g.clusters is not None)
+    for k in ("event_unpack", "cluster_accum", "patch_metrics"):
+        assert ops.LAUNCHES[k] == 4 * steps, (k, ops.LAUNCHES, steps)
+    assert sharded.state.atlas.spec == ("sensor",)
+    for a, b in zip(got, want):
+        for s in range(8):
+            if b.sensor(s).num_windows:
+                _assert_parts_equal(a.sensor(s), b.sensor(s))
+        if b.final_tracks is not None:
+            for f, u, v in zip(b.final_tracks._fields, a.final_tracks, b.final_tracks):
+                assert torch.equal(u.full(), v), f
 
 
 @pytest.mark.cuda

@@ -164,7 +164,7 @@ def test_fleet_feed_validation():
         TP.FleetPipeline(CONFIG, n_sensors=3, state=_fleet(2).state, device="cpu")
     with pytest.raises(ValueError, match="unknown wire mode"):
         TP.FleetPipeline(CONFIG, wire="csr", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh of devices"):
         TP.FleetPipeline(CONFIG, n_sensors=4, mesh=object(), device="cpu")
 
 

@@ -60,7 +60,7 @@ def test_every_module_of_the_port_is_covered():
     assert {p.name for p in (REPO / "examples").glob("torch_*.py")} == {
         "torch_quickstart.py", "torch_fleet_quickstart.py", "torch_serve_detections.py",
         "torch_stream_quickstart.py", "torch_constellation_quickstart.py", "torch_serve_lm.py",
-        "torch_train_lm.py"}
+        "torch_train_lm.py", "torch_multi_node_array.py"}
     assert {p.stem for p in (PORT / "configs").glob("*_*.py")} == {
         p.stem for p in (REPO / "src" / "repro" / "configs").glob("*_*.py")}
 
@@ -128,6 +128,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(tmp_path):
     from repro_torch.data.synthetic import make_recording
     from repro_torch.launch.serve import serve_demo
     from repro_torch.data.lm_data import batches
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import reduced_config, train
     from repro_torch.models import opt_state_from_jax, opt_state_to_numpy
     from repro_torch.train import init_opt_state
@@ -203,6 +204,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(tmp_path):
         lambda: batches(tiny.vocab, 2, 8, 1),
         lambda: opt_state_from_jax(opt_state_to_numpy(init_opt_state(cpu_model), tiny), tiny),
         lambda: CheckpointManager(ckpt_dir).restore({"w": torch.zeros(2)}, device="cuda"),
+        lambda: make_mesh((1,), ("sensor",)),
+        lambda: make_mesh((2,), ("sensor",), devices=["cuda", "cuda"]),
+        lambda: FleetPipeline(n_sensors=4, mesh=make_mesh((4,), ("sensor",), devices=["cuda"] * 4)),
+        lambda: ConstellationService(n_shards=2, devices=["cuda"] * 4),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -210,13 +215,26 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("tool", [["torch_lm_teacher_bound.py"], ["torch_lm_phase.py", "10"],
-                                  ["torch_lm_phase.py", "11"], ["torch_lm_phase.py", "12"]])
+                                  ["torch_lm_phase.py", "11"], ["torch_lm_phase.py", "12"],
+                                  ["torch_lm_phase.py", "13"]])
 def test_lm_tools_refuse_without_a_card(tool):
     """The LM tools run on the card unless told otherwise: with no
     ``--device`` and no card they exit non-zero before measuring."""
     _no_card()
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, str(REPO / "tools" / tool[0]), *tool[1:]], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode != 0
+    assert "cuda" in out.stderr.lower() and "{" not in out.stdout
+
+
+@pytest.mark.parametrize("tool", ["torch_fleet_rounds.py", "torch_host_view.py"])
+def test_fleet_measurement_tools_refuse_without_a_card(tool):
+    """The fleet's measurement tools time the card only: with no card they
+    exit non-zero before measuring."""
+    _no_card()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, str(REPO / "tools" / tool)], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode != 0
     assert "cuda" in out.stderr.lower() and "{" not in out.stdout
@@ -347,3 +365,17 @@ def test_example_train_lm_runs_fast_on_the_cpu_when_asked(tmp_path):
     drop = float(re.search(r"\(drop ([-\d.]+)\)", out.stdout)[1])
     assert drop > 0.05 and "on cpu" in out.stdout
     assert sorted(p.name for p in tmp_path.glob("step_*")) == ["step_00000019", "step_00000039"]
+
+
+def test_example_multi_node_array_runs_on_the_cpu_when_asked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    script = str(REPO / "examples" / "torch_multi_node_array.py")
+    out = subprocess.run([sys.executable, script, "--nodes", "4", "--windows", "8", "--device", "cpu"],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "equal to one call over the stacked array" in out.stdout
+    assert "devices=['cpu:0', 'cpu:1', 'cpu:2', 'cpu:3']" in out.stdout
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, script, "--nodes", "2", "--windows", "2"],
+                             capture_output=True, text=True, env=env, timeout=300)
+        assert out.returncode != 0 and "cuda" in out.stderr.lower()

@@ -134,7 +134,7 @@ def test_partition_specs_match_reference_at_full_width(arch):
     for mesh_kind, (shape, axes) in MESHES.items():
         for name, rules in RULES.items():
             want = _ref_specs(RS.partition_params(ref_tree, rules, _FakeMesh(shape, axes)))
-            mesh = TMESH.make_mesh(shape, axes)
+            mesh = TMESH.Mesh(shape, axes)
             got = _port_leaves(TS.partition_params(port_tree, PORT_RULES[name], mesh))
             assert got == want, (mesh_kind, name)
             # The port's own layout: per-layer names, no stacked dim.
@@ -162,7 +162,7 @@ def test_partition_params_rules():
             "norm1": torch.empty(16, 2560, device=META),
         }},
     }
-    specs = TS.partition_params(tree, TS.TRAIN_RULES, TMESH.make_mesh((16, 16), ("data", "model")))
+    specs = TS.partition_params(tree, TS.TRAIN_RULES, TMESH.Mesh((16, 16), ("data", "model")))
     assert specs["embed"] == ("model", "data") == tuple(P("model", "data"))
     assert specs["cycles"]["blk0"]["inner"]["wq"] == (None, "data", "model")
     assert specs["cycles"]["blk0"]["moe"]["wi_gate"] == (None, "model", "data", None)
@@ -170,7 +170,7 @@ def test_partition_params_rules():
 
 
 def test_partition_divisibility_fallback():
-    mesh = TMESH.make_mesh((16, 16), ("data", "model"))
+    mesh = TMESH.Mesh((16, 16), ("data", "model"))
     specs = TS.partition_params({"embed": torch.empty(73448, 2560, device=META)}, TS.TRAIN_RULES, mesh)
     assert specs["embed"] == (None, "data")
     ref = RS.partition_params({"embed": jax.ShapeDtypeStruct((73448, 2560), jnp.float32)}, RS.TRAIN_RULES,
@@ -179,7 +179,7 @@ def test_partition_divisibility_fallback():
 
 
 def test_serve_rules_no_fsdp():
-    mesh = TMESH.make_mesh((16, 16), ("data", "model"))
+    mesh = TMESH.Mesh((16, 16), ("data", "model"))
     params = {"wq": torch.empty(2048, 2048, device=META)}
     assert TS.partition_params(params, TS.SERVE_RULES, mesh)["wq"] == (None, "model")
     assert TS.partition_params(params, TS.TRAIN_RULES, mesh)["wq"] == ("data", "model")
@@ -474,7 +474,7 @@ print(train.memory_analysis().argument_size_in_bytes, decode.memory_analysis().a
 """
     want_train, want_decode = map(int, _run(code, 8).split()[-2:])
     cfg = dataclasses.replace(TB.get_config("llama3.2-1b"), **small)
-    mesh = TMESH.make_mesh((4, 2), ("data", "model"))
+    mesh = TMESH.Mesh((4, 2), ("data", "model"))
     model = TT.Transformer(cfg, None, device=META)
     params = dict(model.named_parameters())
     pspecs = TS.partition_params(params, TS.TRAIN_RULES, mesh)

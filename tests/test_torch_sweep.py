@@ -131,7 +131,7 @@ def test_sweep_rejects_unknown_driver_and_fleet_mesh():
     recs = [TS.make_recording(seed=1, duration_s=0.1)]
     with pytest.raises(ValueError):
         TP.threshold_sweep(recs, driver="nope", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh of devices"):
         TP.collect_candidates_fleet(recs, mesh=object(), device="cpu")
 
 
