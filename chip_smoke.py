@@ -16,7 +16,8 @@ the reference's other two float routes, the frame oracle and the atlas
 event core (``cluster_accum`` on both, ``event_unpack`` on the live
 ingest path).
 
-Phases (any failure exits non-zero; no error is caught):
+Phases (a failure prints its phase's number and traceback to standard
+output and exits 1; nothing is caught that lets the run go on):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all at once;
@@ -24,7 +25,9 @@ Phases (any failure exits non-zero; no error is caught):
    main path's shapes and on adversarial inputs, and time kernel, plain
    version and, where one exists, a one-call library yardstick; this
    includes ``grid_quantize_packed`` and ``window_entropy``, which no
-   pipeline route reaches (in the reference neither). Beside the two
+   pipeline route reaches (in the reference neither; ``window_entropy``
+   at K = 0, 1, 32 and the K6_PROBE probe, each of its two paths forced
+   at K >= 32). Beside the two
    stage kernels, the torch ops each took off its stage are timed on the
    same inputs;
 3. each path on the quickstart recording through the entry points
@@ -98,7 +101,8 @@ Phases (any failure exits non-zero; no error is caught):
    (``torch.cuda.set_sync_debug_mode``); (c) a 16-sensor event-route
    fleet, every sensor's exported atlas equal to its dedicated stream's,
    and phase 6's session migration on the event route, atlas included;
-   (d) ``window_entropy`` on 64 real reconstructed frames against its
+   (d) ``window_entropy`` on 64 real reconstructed frames (timed beside
+   its bound and floor) against its
    plain version and the frame oracle; (e) Fig. 7 (``metric_matrix``,
    ``correlation_matrix``) on the card against the CPU run, the 6x6
    matrix printed; (f) each route's untracked window core at scale (best
@@ -201,7 +205,10 @@ phase 7a's chaos run as ``chaos_launches``, in 7b as
 ``constellation_launches`` and in 7c as ``shard_chaos_launches``; phase
 8's ``cluster_accum`` launches per route as ``routes_launches``, its
 ``event_unpack`` launches as ``atlas_stream_launches`` and
-``window_entropy``'s real-frame check as ``real_frames``), the
+``window_entropy``'s real-frame check as ``real_frames``; ``window_entropy``'s
+row also carries its K6_PROBE probe as ``probe``, the path each launch
+took, and ``floor_ms``, a one-element ``fill_`` alone under the same
+profiler helper, beside its bound at each of its three shapes), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. In that line a path
 kernel's ``launches`` count one pass of the scale recording through its
 path's driver (``LAUNCH_BASIS``), and its times are per launch of that
@@ -223,6 +230,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -289,6 +297,9 @@ SWEEP_EXPECT = {2: (4246, 12974, 78, 0), 3: (3912, 2804, 87, 10170), 4: (3640, 6
                 5: (3386, 129, 253, 12845), 6: (3120, 20, 435, 12954), 8: (2536, 0, 933, 12974),
                 10: (1843, 0, 1608, 12974)}
 ENTROPY_RTOL, ENTROPY_ATOL = 1e-5, 1e-7  # order-dependent float32 sums, log2f
+# window_entropy's throughput probe: K6_PROBE seeded centres over
+# entropy_frame(), enough slices to fill every SM several times.
+K6_PROBE = 8192
 # Phase 6, the detection service: sessions of make_fleet_recordings over
 # the five balanced families, 2.5 s each at the paper's widths; start with
 # 4 sessions, attach one every 4 rounds up to 16 (4 -> 8 -> 16), then
@@ -408,6 +419,14 @@ LM11_ELASTIC_ATOL = 1e-5
 # default's on the same batch, in turns (default, switch, switch, default).
 # 12d: the dry run of Llama-3.2-1B's three cells on both production meshes.
 LM12_TURNS = (False, True, True, False)
+
+
+PHASE = "0 (set-up)"  # the phase running, named in the failure report
+
+
+def enter(phase) -> None:
+    global PHASE
+    PHASE = str(phase)
 
 
 def log(*a):
@@ -841,6 +860,25 @@ def patch_metrics_cost(batch, clusters, *, width, height) -> dict:
                 valid_slots=n_valid, busy_windows=n_busy)
 
 
+def window_entropy_cost(shape, cx, cy, window: int = 48) -> dict:
+    """Bytes and operations a ``window_entropy`` launch needs on an
+    ``shape`` frame and centres ``cx``, ``cy`` (array-likes on the host):
+    each distinct frame pixel that the K slices cover read once (origins
+    clipped as the kernel clips them, so slices that overlap or clip to
+    one origin count their pixels once), 8 bytes of centre in and 12 out
+    a centre; about 10 operations a pixel of each slice."""
+    import numpy as np
+
+    h, w = shape
+    x0 = np.clip(np.asarray(cx, np.int64) - window // 2, 0, w - window)
+    y0 = np.clip(np.asarray(cy, np.int64) - window // 2, 0, h - window)
+    covered = np.zeros((h, w), bool)
+    for x, y in zip(x0.tolist(), y0.tolist()):
+        covered[y:y + window, x:x + window] = True
+    k, pixels = len(x0), int(covered.sum())
+    return dict(bytes=4 * pixels + 20 * k, ops=10 * window * window * k, pixels=pixels)
+
+
 def per_launch(rows: list[dict]) -> dict:
     """The mean over one launch each of ``rows`` (times, bytes,
     operations; counts summed), so a row's numbers are per launch of the
@@ -985,13 +1023,15 @@ def check_wire_kernels(dev, scale, fleet_recs) -> dict:
     is timed here at a 16-sensor fleet round and on the scale recording's
     whole wire (its row in the kernels line comes from the stream's own
     decodes, :func:`check_stream`); the other two lie on no path and are
-    timed on the scale recording's words and at K = 32 centres."""
+    timed on the scale recording's words, and at K = 32 centres and the
+    K6_PROBE probe (with the floor of a launch)."""
     import numpy as np
     import torch
 
     from repro_torch.core.events import pack_wire, wire_tensors
     from repro_torch.data.adversarial import (
-        adversarial_wires, dual_bounds3, entropy_frame, fleet_wire, overlay_wires,
+        adversarial_wires, dual_bounds3, entropy_frame, entropy_probe_centres, fleet_wire,
+        overlay_wires,
     )
     from repro_torch.kernels import grid_quantize as _gq
     from repro_torch.kernels import ops, ref
@@ -1055,26 +1095,91 @@ def check_wire_kernels(dev, scale, fleet_recs) -> dict:
     log_kernel("grid_quantize_packed (scale words, cell 16)", r)
     results["grid_quantize_packed"] = r
 
-    # window_entropy: rtol 1e-5 (float32 sums in another order, log2f).
+    # window_entropy: rtol 1e-5 (float32 sums in another order, log2f),
+    # at K = 0, 1, 32 and the K6_PROBE probe, on the frame and the empty
+    # frame, one launch a call; each path forced where both could run.
     frame, cx, cy = entropy_frame()
+    px, py = entropy_probe_centres(K6_PROBE)
+    centres = {"K = 0": (cx[:0], cy[:0]), "K = 1": (cx[:1], cy[:1]),
+               f"K = {len(cx)}": (cx, cy), f"K = {K6_PROBE} probe": (px, py)}
     err = 0.0
-    for name, f in (("frame", frame), ("empty frame", np.zeros_like(frame))):
-        args = [torch.from_numpy(a).to(dev) for a in (f, cx, cy)]
-        err = max(err, close(ops.window_entropy(*args), ref.window_entropy_ref(*args),
-                             f"window_entropy ({name})", ENTROPY_RTOL, ENTROPY_ATOL))
-    log(f"  window_entropy: within rtol {ENTROPY_RTOL} of the plain version (corner-clipped, "
-        f"single hot pixel and random centres; empty frame), max abs err {err:.3e}")
-    args = [torch.from_numpy(a).to(dev) for a in (frame, cx, cy)]
-    k = cx.shape[0]
-    we = lambda: _we.window_entropy(*args)  # noqa: E731
-    r = dict(ms=kernel_device_ms(we, ("window_entropy_kernel",)), call_ms=cuda_ms(we),
-             plain_ms=cuda_ms(lambda: ref.window_entropy_ref(*args)),
-             library_ms=None, max_abs_err=err,
-             bytes=k * (48 * 48 * 4 + 8 + 12), ops=k * 48 * 48 * 10, shape=(k,))
-    bound(r)
-    log_kernel(f"window_entropy (K = {k})", r)
+    for fname, f in (("frame", frame), ("empty frame", np.zeros_like(frame))):
+        for cname, (a, b) in centres.items():
+            args = [torch.from_numpy(v).to(dev) for v in (f, a, b)]
+            what = f"window_entropy ({fname}, {cname})"
+            before = ops.LAUNCHES["window_entropy"]
+            got = ops.window_entropy(*args)
+            require(ops.LAUNCHES["window_entropy"] == before + (len(a) > 0), f"{what}: launches")
+            want = ref.window_entropy_ref(*args)
+            err = max(err, close(got, want, what, ENTROPY_RTOL, ENTROPY_ATOL))
+            if len(a) >= len(cx):
+                for path in ("wide", "warp"):
+                    err = max(err, close(_we._launch(*args, path), want,
+                                         f"{what}, {path} path", ENTROPY_RTOL, ENTROPY_ATOL))
+    log(f"  window_entropy: within rtol {ENTROPY_RTOL} of the plain version at {', '.join(centres)} "
+        f"(corner-clipped, single hot pixel, random and probe centres; frame and empty frame; "
+        f"both paths forced at K >= {len(cx)}), one launch a call, max abs err {err:.3e}")
+    floor = fill_floor_ms(dev)
+    rows = {}
+    for name, (a, b) in (("entropy_frame", (cx, cy)), ("probe", (px, py))):
+        args = tuple(torch.from_numpy(v).to(dev) for v in (frame, a, b))
+        rows[name] = r = dict(time_window_entropy([args], floor), path=_we.plan(len(a), dev))
+        log_kernel(f"window_entropy (K = {len(a)}, {r['path']} path)", r)
+    r = dict(rows["entropy_frame"], max_abs_err=err, probe=rows["probe"])
     results["window_entropy"] = r
     return results
+
+
+def fill_floor_ms(dev) -> float:
+    """The floor of a launch on this card: a one-element ``fill_`` alone
+    under the profiler (:func:`kernel_device_ms`), as the kernels are timed."""
+    import torch
+
+    t = torch.empty(1, device=dev)
+    ms = kernel_device_ms(lambda: t.fill_(1.0), ("FillFunctor",))
+    require(ms > 0, "fill_: no device time under the profiler")
+    return ms
+
+
+def sm_clock_mhz() -> str:
+    """The card's SM clock now, as ``nvidia-smi`` reads it (``"?"`` if it
+    cannot): sampled beside a reading that may depend on it."""
+    import subprocess
+
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=30).stdout.strip() or "?"
+    except (OSError, subprocess.SubprocessError):
+        return "?"
+
+
+def time_window_entropy(calls, floor_ms: float, path: str | None = None) -> dict:
+    """Per launch over ``calls``, each a ``(frame, cx, cy)`` of CUDA
+    tensors: the kernel alone (profiler), the call (CUDA events), the plain
+    version, the bound from :func:`window_entropy_cost`, the floor, and
+    the SM clock just after the kernel's profile. ``path`` forces the
+    kernel's path (``window_entropy._launch``); by default the wrapper's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import window_entropy as _we
+
+    launch = _we.window_entropy if path is None else (lambda *a: _we._launch(*a, path))
+    n = len(calls)
+    costs = [window_entropy_cost(tuple(f.shape), cx.cpu().numpy(), cy.cpu().numpy())
+             for f, cx, cy in calls]
+    kw = [(c, {}) for c in calls]
+    iters = max(2, 20 // n)
+    ks = [c[1].shape[0] for c in calls]
+    r = dict(
+        ms=kernel_device_ms(lambda: replay(launch, kw), ("window_entropy_kernel",), iters=iters) / n,
+        sm_clock=sm_clock_mhz(),
+        call_ms=replay_ms(launch, kw, iters), plain_ms=replay_ms(ref.window_entropy_ref, kw),
+        library_ms=None, floor_ms=floor_ms,
+        bytes=sum(c["bytes"] for c in costs) / n, ops=sum(c["ops"] for c in costs) / n,
+        pixels=sum(c["pixels"] for c in costs) / n,
+        shape=(ks[0],) if n == 1 else f"{n} launches of K {min(ks)}-{max(ks)} on (480, 640) frames",
+    )
+    bound(r)
+    return r
 
 
 def time_calls(calls, kernel, plain, names, n_plain: int | None = None) -> dict:
@@ -1151,7 +1256,10 @@ def log_kernel(name: str, r: dict) -> None:
         f"plain {r['plain_ms']:.4f} ms, library {lib if lib is None else round(lib, 4)} ms, "
         f"bound {r['bound_ms']:.4g} ms by {r['bound_by']} ({r['bytes']:.0f} B, {r['ops']:.0f} ops"
         + (f", {r['valid_slots']} valid slots in {r['busy_windows']} windows)"
-           if "valid_slots" in r else ")"))
+           if "valid_slots" in r else ")")
+        + (f"; floor {r['floor_ms']:.4f} ms (a one-element fill_), {r['pixels']:.0f} distinct pixels, "
+           f"SM clock {r['sm_clock']}"
+           if "floor_ms" in r else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -2699,6 +2807,7 @@ def check_k6_real_frames(scale, routes, dev) -> dict:
     from repro_torch.core.events import EventBatch, pad_windows
     from repro_torch.core.pipeline.window_core import _condition
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import window_entropy as _we
 
     cfg = route_config("frame")
     frame_run = routes["runs"]["frame"]["result"]
@@ -2736,14 +2845,14 @@ def check_k6_real_frames(scale, routes, dev) -> dict:
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["window_entropy"]
     require(launches == len(calls) > 0, f"[8] window_entropy launches {launches}, calls {len(calls)}")
-    ms = kernel_device_ms(lambda: replay(ops.window_entropy, calls), ("window_entropy",),
-                          iters=5) / len(calls)
     require(len(calls) == K6_WINDOWS, f"[8] window_entropy: {len(calls)} frames with a valid cluster")
+    r = dict(time_window_entropy([a for a, _ in calls], fill_floor_ms(dev)),
+             path=_we.plan(max(a[1].shape[0] for a, _ in calls), dev))
     log(f"[8] window_entropy on {len(calls)} real frames ({n_clusters} valid clusters, centres rounded): "
         f"against its plain version max abs err {plain_err:.3g}; against the frame oracle (shannon, "
-        f"renyi) and local_contrast max abs err {oracle_err:.3g}; {ms:.4f} ms a launch alone")
-    return dict(launches=launches, max_abs_err=plain_err, oracle_err=oracle_err, ms=ms,
-                clusters=n_clusters)
+        f"renyi) and local_contrast max abs err {oracle_err:.3g}")
+    log_kernel("[8] window_entropy, real frames", r)
+    return dict(r, launches=launches, max_abs_err=plain_err, oracle_err=oracle_err, clusters=n_clusters)
 
 
 def check_fig7(routes, dev) -> None:
@@ -2802,12 +2911,18 @@ def route_times(scale, dev) -> dict:
 def phase8(scale, kernel_run, fleet_recs, dev) -> dict:
     """Phase 8, run on the card with no error caught."""
     t8 = time.perf_counter()
+    enter("8a")
     routes = check_routes(scale, kernel_run, dev)
+    enter("8b")
     atlas = check_atlas_stream(scale, dev)
     sync = check_atlas_sync(scale, dev)
+    enter("8c")
     check_route_fleet(fleet_recs, dev)
+    enter("8d")
     k6 = check_k6_real_frames(scale, routes, dev)
+    enter("8e")
     check_fig7(routes, dev)
+    enter("8f")
     times = route_times(scale, dev)
     log(f"[8] phase wall time {time.perf_counter() - t8:.1f} s")
     return dict(routes=routes, atlas=atlas, sync=sync, k6=k6, times=times)
@@ -4371,9 +4486,13 @@ def mesh13_node_array() -> dict:
 def phase13(cfg, fleet_recs, fleet_sync, fleet_lat, dev, smi: str) -> dict:
     """Phase 13, the multi-device slice on the card, with no error caught."""
     t13 = time.perf_counter()
+    enter("13a")
     out = dict(mesh=mesh13_fleet(cfg, fleet_recs, fleet_sync, fleet_lat, dev, smi))
+    enter("13b")
     out["constellation"] = mesh13_constellation(cfg, dev)
+    enter("13c")
     out["collectives"] = mesh13_collectives(dev)
+    enter("13d")
     out["node_array"] = mesh13_node_array()
     log(f"[13] {json.dumps(out)}")
     log(f"[13] phase wall time {time.perf_counter() - t13:.1f} s")
@@ -4405,6 +4524,7 @@ def main() -> int:
     cfg = PipelineConfig(use_kernels=True, metrics_impl="kernel")
 
     # Phase 1: build.
+    enter(1)
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[1] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
@@ -4417,6 +4537,7 @@ def main() -> int:
                     log(f"    {name}: {line.strip()}")
 
     # Phase 2: kernels against their plain versions.
+    enter(2)
     fixed = PipelineConfig(numerics="fixed", metrics_impl="megakernel")
     staged = PipelineConfig(numerics="fixed", metrics_impl="staged")
     scale = make_recording(**SCALE)
@@ -4446,6 +4567,7 @@ def main() -> int:
 
     # Phase 3: each path on the quickstart recording, its launch counters
     # set to 0 just before it and read just after.
+    enter(3)
     rec = make_recording(**QUICKSTART)
     quick = {}
     for name, c, own in (("float", cfg, FLOAT_KERNELS), ("fixed", fixed, FIXED_KERNELS)):
@@ -4471,6 +4593,7 @@ def main() -> int:
     # this phase's: one pass of the scale recording through each path's
     # driver (the scan for the float and fixed kernels, the stream for
     # the decode), each path's counters set to 0 just before it.
+    enter(4)
     launches = {}
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -4511,6 +4634,7 @@ def main() -> int:
     fleet_counts, fleet_sync, fleet_lat = check_full_fleet(cfg, fleet_recs, dev)
 
     # Phase 5: the kernels ran on their paths.
+    enter(5)
     path_kernels = [k for k in REPLACES if k not in NO_PATH]
     require(all(launches[k] > 0 and quick[k] > 0 for k in path_kernels),
             f"[5] a kernel was not launched on its path: scale {launches}, quickstart {quick}")
@@ -4524,6 +4648,7 @@ def main() -> int:
 
     # Phase 6: the detection service on both datapaths, each run's
     # counters set to 0 just before it; a session across devices; Table I.
+    enter(6)
     t6 = time.perf_counter()
     service = {name: check_service(name, c, dev) for name, c in (("float", cfg), ("fixed", fixed))}
     check_migration(cfg, dev)
@@ -4532,6 +4657,7 @@ def main() -> int:
 
     # Phase 7: fault injection and scale-out serving, each run's counters
     # set to 0 just before it.
+    enter(7)
     t7 = time.perf_counter()
     chaos = {name: check_chaos(name, c, dev) for name, c in (("float", cfg), ("fixed", fixed))}
     constellation = check_constellation(cfg, dev)
@@ -4543,16 +4669,20 @@ def main() -> int:
     p8 = phase8(scale, kernel_run, fleet_recs, dev)
 
     # Phase 9: the LM serving path at Llama-3.2-1B's full width.
+    enter(9)
     p9 = phase9(dev, smi)
 
     # Phase 10: the MLA, MoE, RG-LRU and xLSTM families at full width.
+    enter(10)
     phase10(dev, smi)
 
     # Phase 11: LM training at full width and the paged decode.
+    enter(11)
     p11 = phase11(dev, smi)
 
     # Phase 12: the launch tooling (op counter, roofline, dry run) and the
     # cache-dtype decode products.
+    enter(12)
     phase12(dev, smi, p9, p11)
 
     # Phase 13: the multi-device slice on the one card (a 4-entry sensor
@@ -4560,6 +4690,7 @@ def main() -> int:
     # counters set to 0 just before it.
     p13 = phase13(cfg, fleet_recs, fleet_sync, fleet_lat, dev, smi)
 
+    enter("5 (the kernels line)")
     rows = []
     for name, r in kernels.items():
         row = dict(
@@ -4616,7 +4747,9 @@ def main() -> int:
                                       for k, r8 in p8["routes"]["runs"].items() if r8["launches"]}
         if name == "event_unpack":  # phase 8: the event route's ragged streams
             row["atlas_stream_launches"] = {k: v["event_unpack"] for k, v in p8["atlas"].items()}
-        if name == "window_entropy":  # phase 8: the frame oracle's real frames
+        if name == "window_entropy":  # phase 2's probe; phase 8: the frame oracle's real frames
+            row.update(floor_ms=r["floor_ms"], path_taken=r["path"],
+                       probe=dict(r["probe"], timed_on=str(r["probe"]["shape"])))
             row["real_frames"] = dict(p8["k6"], timed_on=f"{p8['k6']['launches']} frames of the "
                                       f"scale recording, one launch a frame")
             row["max_abs_err"] = max(row["max_abs_err"], p8["k6"]["max_abs_err"])
@@ -4639,5 +4772,16 @@ def main() -> int:
         "count": torch.cuda.device_count()}}))
     return 0
 
+def run() -> int:
+    """:func:`main`; when a phase raises, its number and the traceback go
+    to standard output (the end of which a chip run's record keeps) and the
+    exit code is 1."""
+    try:
+        return main()
+    except Exception:
+        print(f"chip_smoke: phase {PHASE} failed:\n{traceback.format_exc()}", flush=True)
+        return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -358,3 +358,12 @@ def entropy_frame(seed: int = 0, h: int = 480, w: int = 640):
     cx = np.r_[rng.integers(0, w, 24), 0, w - 1, -40, w + 40, 300, 5, w - 3, 24]
     cy = np.r_[rng.integers(0, h, 24), 0, h - 1, -40, h + 40, 100, h - 2, 7, 24]
     return frame, cx.astype(np.int32), cy.astype(np.int32)
+
+
+def entropy_probe_centres(k: int = 8192, seed: int = 1, h: int = 480, w: int = 640):
+    """``(k,)`` int32 centres for ``entropy_frame``'s throughput probe:
+    uniform over the frame and 40 px past each edge, so some origins clip
+    and many slices overlap."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-40, w + 40, k).astype(np.int32),
+            rng.integers(-40, h + 40, k).astype(np.int32))

@@ -236,7 +236,7 @@ def window_entropy_ref(
     r = torch.arange(window, device=dev)
     rows = (y0[:, None] + r)[:, :, None]
     cols = (x0[:, None] + r)[:, None, :]
-    flat = frame.to(torch.float32)[rows, cols].reshape(cx.shape[0], -1)  # (K, window^2)
+    flat = frame.to(torch.float32)[rows, cols].reshape(cx.shape[0], window * window)
     idx = torch.clamp((flat * bins).to(torch.int32), 0, bins - 1).to(torch.int64)
     counts = torch.zeros((cx.shape[0], bins), dtype=torch.float32, device=dev)
     counts.scatter_add_(1, idx, torch.ones_like(flat))

@@ -590,6 +590,62 @@ def test_window_entropy_kernel_matches_plain(cuda_dev):
         torch.testing.assert_close(got, ref.window_entropy_ref(*args), rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 8192])
+def test_window_entropy_kernel_at_k(cuda_dev, k):
+    """K = 0 (no launch), one centre (the wide path) and the K = 8,192
+    probe (the warp path) against the plain version, one launch a call."""
+    from repro_torch.data.adversarial import entropy_frame, entropy_probe_centres
+
+    frame = entropy_frame()[0]
+    cx, cy = entropy_probe_centres(k)
+    args = [torch.from_numpy(a).to(cuda_dev) for a in (frame, cx, cy)]
+    before = ops.LAUNCHES["window_entropy"]
+    got = ops.window_entropy(*args)
+    assert ops.LAUNCHES["window_entropy"] == before + (k > 0)
+    assert got.shape == (3, k)
+    torch.testing.assert_close(got, ref.window_entropy_ref(*args), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 8192])
+def test_window_entropy_paths_agree(cuda_dev, k):
+    """The wide path (a CTA a centre) and the warp path (a warp a centre)
+    give the same outputs on the same centres, whichever the launch would
+    choose, and both the plain version's."""
+    from repro_torch.data.adversarial import entropy_frame, entropy_probe_centres
+    from repro_torch.kernels import window_entropy as _we
+
+    frame, cx, cy = entropy_frame()
+    if k != len(cx):
+        cx, cy = entropy_probe_centres(k)
+    args = [torch.from_numpy(a).to(cuda_dev) for a in (frame, cx, cy)]
+    assert _we.plan(32, cuda_dev) == "wide" and _we.plan(8192, cuda_dev) == "warp"
+    wide = _we._launch(*args, "wide")
+    warp = _we._launch(*args, "warp")
+    torch.testing.assert_close(wide, warp, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(wide, ref.window_entropy_ref(*args), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(_we.window_entropy(*args), wide if k == 32 else warp, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wide", "warp"])
+def test_window_entropy_paths_on_any_frame(cuda_dev, path):
+    """A frame 637 wide and one whose base is not 16-byte aligned: both
+    paths read any row stride and any origin, against the plain version."""
+    from repro_torch.data.adversarial import entropy_frame, entropy_probe_centres
+    from repro_torch.kernels import window_entropy as _we
+
+    frame = torch.from_numpy(entropy_frame()[0]).to(cuda_dev)
+    cx, cy = (torch.from_numpy(a).to(cuda_dev) for a in entropy_probe_centres(1000, w=637))
+    narrow = frame[:, :637].contiguous()
+    shifted = torch.cat([frame.new_zeros(1), frame.flatten()])[1:].view(frame.shape)
+    assert shifted.data_ptr() % 16 == 4
+    for f in (narrow, shifted):
+        got = _we._launch(f, cx, cy, path)
+        torch.testing.assert_close(got, ref.window_entropy_ref(f, cx, cy), rtol=1e-5, atol=1e-7)
+
+
 def _fleet_rounds(recs, chunk_us=20_000):
     from repro_torch.data.evas import iter_chunks
 

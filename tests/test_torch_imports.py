@@ -240,6 +240,18 @@ def test_fleet_measurement_tools_refuse_without_a_card(tool):
     assert "cuda" in out.stderr.lower() and "{" not in out.stdout
 
 
+@pytest.mark.parametrize("tool", ["torch_k6_compare.py"])
+def test_window_entropy_tools_refuse_without_a_card(tool):
+    """K6's measurement tools time the card only: with no card they exit
+    non-zero before building or measuring anything."""
+    _no_card()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, str(REPO / "tools" / tool)], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode != 0
+    assert "cuda" in out.stderr.lower() and "{" not in out.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     _no_card()
     out = subprocess.run(
@@ -248,6 +260,23 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_reports_a_failing_phase_on_stdout(monkeypatch, capsys):
+    """A phase that raises: its number and traceback on standard output,
+    exit code 1, no result line."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    def failing():
+        chip_smoke.enter("8d")
+        raise ZeroDivisionError("the phase's own error")
+
+    monkeypatch.setattr(chip_smoke, "main", failing)
+    assert chip_smoke.run() == 1
+    out = capsys.readouterr().out
+    assert "phase 8d failed" in out and "Traceback" in out
+    assert "ZeroDivisionError: the phase's own error" in out and '"ok"' not in out
 
 
 def test_example_quickstart_runs_on_the_cpu_when_asked():
