@@ -190,8 +190,11 @@ output and exits 1; nothing is caught that lets the run go on):
 Since the loop driver and the accuracy sweep were ported, phase 2 also
 holds both stage kernels past their small path (E = 1025, 4096 and
 20,000; K = 160; a cell table outside shared memory; cell t sums past
-2^24, centroid_t within its stated bound) and times them on the scale
-recording's 100 ms stride windows at capacity 4096; phase 3 also runs the
+2^24, centroid_t within its stated bound; ``patch_metrics`` also with
+every slot valid, at 70,000 events a window and at 1-32 slots a CTA) and
+times them on the scale recording's 100 ms stride windows at capacity
+4096 (``patch_metrics``' bound also as every pixel counted,
+``dense_bound_ms``); phase 3 also runs the
 loop driver (``run_recording``) on the quickstart recording, equal window
 for window to the scan with one launch per window of each path kernel,
 and ``threshold_sweep(make_validation_suite())`` with the scan and the
@@ -282,10 +285,16 @@ FLEET_QUICK = dict(duration_s=2.0, n_rsos=2)  # sensor s has seed 20 + s
 CHUNK_US = 20_000
 BUDGET_MS = 62.0  # the paper's per-window deterministic budget
 # Past the stage kernels' small path (E <= 1024, K <= 128): E one over it,
-# the stride windows' capacity, and past the 227 KB of shared memory that
-# patch_metrics' events and keys fit in; K = 160.
+# the stride windows' capacity, and 20,000 (about five times that);
+# K = 160.
 LARGE_E = (1025, 4096, 20_000)
 LARGE_K = 160
+# patch_metrics past 65,535 events a window: 32-bit patch tables, and the
+# row index and events past shared memory, in per-CTA device scratch.
+K3_SCRATCH_E = 70_000
+# patch_metrics with one pixel of 48,000 of a window's 50,000 events: its
+# count squared passes 2^31 (hot_pixel_window).
+K3_HOT_E = 50_000
 # The scale recording in 100 ms stride windows at capacity 4096 (about
 # 2,150 events a window): the stage kernels' large path on real sky.
 STRIDE_US = 100_000
@@ -697,13 +706,14 @@ def check_large_sizes(dev) -> dict:
     against their plain versions on the card: E in ``LARGE_E`` at K = 32
     and 160 (cell 16; cell 12 at min_events 0), K2's cell table outside
     shared memory (cell 4) and the hand-built window whose cell t sums
-    pass 2^24. Every integer field identical, centroid_t and sum_t within
-    their stated bounds, K3's metrics at the stated tolerances. Returns
-    the largest difference of each kernel and of centroid_t."""
+    pass 2^24; K3 also at ``K3_SCRATCH_E``, on a window of ``K3_HOT_E``
+    events with one pixel past 46,340 events, and with every slot valid
+    (:func:`check_patch_metrics_large`). Every integer field identical,
+    centroid_t and sum_t within their stated bounds, K3's metrics at the
+    stated tolerances. Returns the largest difference of each kernel and
+    of centroid_t."""
     from repro_torch.core.grid_clustering import GridConfig
-    from repro_torch.data.adversarial import (
-        edge_slot_clusters, large_windows, stacked_batch, sum_t_window,
-    )
+    from repro_torch.data.adversarial import hot_pixel_window, large_windows, stacked_batch, sum_t_window
     from repro_torch.kernels import ops, ref
 
     err = {"cluster_accum": 0.0, "patch_metrics": 0.0, "centroid_t": 0.0}
@@ -730,17 +740,53 @@ def check_large_sizes(dev) -> dict:
             lim = ref.sum_t_bound(plain[0], abs_t)
             diff = (rows[3].double() - plain[3].double()).abs()
             require(bool((diff <= lim).all()), f"cluster_accum sum_t ({name}, {g}): beyond its bound")
-        for k in (32, LARGE_K):
-            cl = edge_slot_clusters(b, k)
+        err["patch_metrics"] = max(err["patch_metrics"], check_patch_metrics_large(name, b))
+    b = stacked_batch(large_windows(K3_SCRATCH_E, n_windows=2), dev)
+    err["patch_metrics"] = max(err["patch_metrics"], check_patch_metrics_large(f"E = {K3_SCRATCH_E}", b))
+    b = stacked_batch([hot_pixel_window(K3_HOT_E)], dev)
+    err["patch_metrics"] = max(err["patch_metrics"], check_patch_metrics_large(
+        f"E = {K3_HOT_E}, a hot pixel", b, slots=lambda b, k: [("its clusters", ref.cluster_accum_topk_ref(
+            b.x, b.y, b.t, b.valid, GridConfig(min_events=1, max_clusters=k)))]))
+    log(f"  large sizes (E {', '.join(map(str, LARGE_E))}; K 32 and {LARGE_K}; K2's table outside shared "
+        f"memory at cell 4; the sum_t window; K3 also at E = {K3_SCRATCH_E}, at E = {K3_HOT_E} with a "
+        f"pixel of 48,000 events, and with every slot valid): "
+        f"cluster_accum's integer fields and both entries' sums identical but t (centroid_t within its "
+        f"bound, largest difference {err['centroid_t']:.3g} us); patch_metrics event_count/edge_density "
+        f"identical, others max abs err {err['patch_metrics']:.3e}, the same to the bit at 1-32 slots a CTA")
+    return err
+
+
+def check_patch_metrics_large(name, b, slots=None) -> float:
+    """``patch_metrics`` on ``b`` at K = 32 and ``LARGE_K``, the slots of
+    ``edge_slot_clusters`` and then every slot valid
+    (``full_slot_clusters``), or those of ``slots(b, k)`` (a list of
+    ``(label, clusters)``), against its plain version: one launch each,
+    event_count and edge_density identical, the rest within RTOL/ATOL.
+    On the large path (E past 1,024 or K past 128) the outputs at 1, 7 and
+    32 slots a CTA equal the default's to the bit. Returns the largest
+    difference."""
+    import torch
+
+    from repro_torch.data.adversarial import edge_slot_clusters, full_slot_clusters
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import patch_metrics as _pm
+
+    if slots is None:
+        slots = lambda b, k: [("edge slots", edge_slot_clusters(b, k)),  # noqa: E731
+                              ("every slot valid", full_slot_clusters(b, k))]
+    err = 0.0
+    for k in (32, LARGE_K):
+        for label, cl in slots(b, k):
+            what = f"patch_metrics ({name}, K = {k}, {label})"
             before = ops.LAUNCHES["patch_metrics"]
             got = ops.patch_metrics(b, cl)
-            require(ops.LAUNCHES["patch_metrics"] == before + 1, f"patch_metrics ({name}): not one launch")
-            err["patch_metrics"] = max(err["patch_metrics"], compare_metrics(
-                got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), f"patch_metrics ({name}, K = {k})"))
-    log(f"  large sizes (E {', '.join(map(str, LARGE_E))}; K 32 and {LARGE_K}; K2's table outside shared "
-        f"memory at cell 4; the sum_t window): cluster_accum's integer fields and both entries' sums "
-        f"identical but t (centroid_t within its bound, largest difference {err['centroid_t']:.3g} us); "
-        f"patch_metrics event_count/edge_density identical, others max abs err {err['patch_metrics']:.3e}")
+            require(ops.LAUNCHES["patch_metrics"] == before + 1, f"{what}: not one launch")
+            err = max(err, compare_metrics(got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), what))
+            if b.x.shape[1] > 1024 or k > 128:
+                for group in (1, 7, 32):
+                    other = _pm._launch(b, cl, 640, 480, group)
+                    require(all(torch.equal(other[m], got[m]) for m in got),
+                            f"{what}: {group} slots a CTA differ from the default")
     return err
 
 
@@ -828,16 +874,24 @@ def cluster_accum_topk_cost(x, y, t, valid, grid) -> dict:
 
 def patch_metrics_cost(batch, clusters, *, width, height) -> dict:
     """Bytes and operations the metrics stage must move and do on these
-    arguments. Bytes: x, y and valid of the events of each window that
-    holds a valid slot, the valid flag of every slot, centroids and count
-    of each valid slot, six floats out per slot. Operations: per window
-    that holds a valid slot, a sort of its w in-sensor valid events (2
-    log2 w each) and about 8 per such event for the runs, c, leaders and
-    bins; per valid slot, a binary search of the sorted events for each of
-    its 48 patch rows (2 log2 w each), ~8 per event inside its patch
-    (offsets, compares, atomics: only the events the patch holds, not the
-    window's), ~25 per pixel for the Sobel, e2, sqrt and three
-    reductions, 2 per pixel for the edge pass, ~320 for the epilogue."""
+    arguments. Bytes: of each window that holds a valid slot, the valid
+    flag of every event slot and x and y of each valid event (a padding
+    slot needs no more than its flag); the valid flag of every cluster
+    slot, centroids and count of each valid slot, six floats out per slot. Operations: per window
+    that holds a valid slot, about 12 per w in-sensor valid event (an
+    index of the events by sensor row: count, scan, place; the
+    normalizer's repeat count); per valid slot, 2 per patch row (its
+    events' range), ~8 per event inside its patch (offset, compares, the
+    count, the bin: only the events the patch holds, not the window's),
+    ~25 per candidate pixel, a pixel with an event in its 3x3
+    neighbourhood (the Sobel, e2, sqrt, the sums, the edge test: every
+    other pixel's gradient is zero and its terms are one product a slot),
+    ~320 for the epilogue. ``dense_ops``: the work of a kernel that
+    evaluates every pixel, a sort of the events (2 log2 w each and 8 for
+    the runs), a binary search per patch row (2 log2 w) and ~27 per pixel
+    of every patch."""
+    import torch
+
     from repro_torch.core import metrics as M
 
     n_win, e = batch.x.shape
@@ -850,14 +904,27 @@ def patch_metrics_cost(batch, clusters, *, width, height) -> dict:
     sort_ops = int((w * (2 * w.clamp_min(2).log2().ceil() + 8)).sum())
     x0, y0 = M.window_origin(clusters.centroid_x, clusters.centroid_y, width, height)
     wi, ki = clusters.valid.nonzero(as_tuple=True)  # the valid slots
-    dx = batch.x[wi] - x0[wi, ki][:, None]
-    dy = batch.y[wi] - y0[wi, ki][:, None]
-    in_patch = int((inb[wi] & (dx >= 0) & (dx < M.WINDOW) & (dy >= 0) & (dy < M.WINDOW)).sum())
+    in_patch, candidates = 0, 0
+    for lo in range(0, len(wi), 2048):  # slots in chunks: (slots, E) masks
+        sw, sk = wi[lo:lo + 2048], ki[lo:lo + 2048]
+        dx = batch.x[sw] - x0[sw, sk][:, None]
+        dy = batch.y[sw] - y0[sw, sk][:, None]
+        inp = inb[sw] & (dx >= 0) & (dx < M.WINDOW) & (dy >= 0) & (dy < M.WINDOW)
+        in_patch += int(inp.sum())
+        flat = (dy.clamp(0, M.WINDOW - 1) * M.WINDOW + dx.clamp(0, M.WINDOW - 1)).long()
+        occ = torch.zeros((len(sw), M.WINDOW * M.WINDOW), device=inp.device).scatter_add_(
+            -1, flat, inp.float()) > 0
+        near = torch.nn.functional.max_pool2d(
+            occ.float().view(-1, 1, M.WINDOW, M.WINDOW), 3, stride=1, padding=1)
+        candidates += int((near > 0).sum())
     w_slot = inb[wi].sum(-1).double()
     search_ops = int((M.WINDOW * 2 * w_slot.clamp_min(2).log2().ceil()).sum())
-    return dict(bytes=n_busy * e * 9 + n_win * k * (1 + 24) + n_valid * 12,
-                ops=sort_ops + search_ops + 8 * in_patch + n_valid * (27 * M.WINDOW * M.WINDOW + 320),
-                valid_slots=n_valid, busy_windows=n_busy)
+    n_events = int(batch.valid[busy].sum())
+    return dict(bytes=n_busy * e + 8 * n_events + n_win * k * (1 + 24) + n_valid * 12,
+                ops=int(12 * w.sum()) + n_valid * (2 * M.WINDOW + 320) + 8 * in_patch + 25 * candidates,
+                dense_ops=sort_ops + search_ops + 8 * in_patch
+                + n_valid * (27 * M.WINDOW * M.WINDOW + 320),
+                valid_slots=n_valid, busy_windows=n_busy, candidate_pixels=candidates)
 
 
 def window_entropy_cost(shape, cx, cy, window: int = 48) -> dict:
@@ -888,7 +955,7 @@ def per_launch(rows: list[dict]) -> dict:
         vals = [r[key] for r in rows]
         if key == "shape":
             out[key] = " + ".join(str(tuple(a)) for a in vals)
-        elif key in ("valid_slots", "busy_windows"):
+        elif key in ("valid_slots", "busy_windows", "candidate_pixels"):
             out[key] = sum(vals)
         elif v is None:
             out[key] = None
@@ -1247,6 +1314,8 @@ def bound(r: dict) -> None:
     t_ops = r["ops"] / r.get("ops_peak", PEAK_OPS_S) * 1e3
     r["bound_ms"] = max(t_bytes, t_ops)
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if "dense_ops" in r:  # patch_metrics: the bound with the Sobel at every pixel
+        r["dense_bound_ms"] = max(t_bytes, r["dense_ops"] / PEAK_OPS_S * 1e3)
 
 
 def log_kernel(name: str, r: dict) -> None:
@@ -1255,8 +1324,9 @@ def log_kernel(name: str, r: dict) -> None:
     log(f"  {name} at {r['shape']}{per}: kernels alone {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), "
         f"plain {r['plain_ms']:.4f} ms, library {lib if lib is None else round(lib, 4)} ms, "
         f"bound {r['bound_ms']:.4g} ms by {r['bound_by']} ({r['bytes']:.0f} B, {r['ops']:.0f} ops"
-        + (f", {r['valid_slots']} valid slots in {r['busy_windows']} windows)"
-           if "valid_slots" in r else ")")
+        + (f", {r['valid_slots']} valid slots in {r['busy_windows']} windows" if "valid_slots" in r else "")
+        + (f", {r['candidate_pixels']} candidate pixels; every pixel counted: {r['dense_bound_ms']:.4g} ms"
+           if "dense_bound_ms" in r else "") + ")"
         + (f"; floor {r['floor_ms']:.4f} ms (a one-element fill_), {r['pixels']:.0f} distinct pixels, "
            f"SM clock {r['sm_clock']}"
            if "floor_ms" in r else ""))
@@ -4739,6 +4809,7 @@ def main() -> int:
             row["large_path"] = dict(
                 launches=stride_run[name], ms=lg["ms"], call_ms=lg["call_ms"], plain_ms=lg["plain_ms"],
                 bound_ms=lg["bound_ms"], bound_by=lg["bound_by"], library_ms=None, timed_on=str(lg["shape"]),
+                **{key: lg[key] for key in ("valid_slots", "candidate_pixels", "dense_bound_ms") if key in lg},
                 launches_on=f"run_recording_scan of the scale recording in {STRIDE_US // 1000} ms stride "
                             f"windows at capacity {STRIDE_CAPACITY} (float, untracked)",
             )

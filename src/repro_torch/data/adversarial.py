@@ -72,6 +72,23 @@ def edge_slot_clusters(batch: EventBatch, k: int = 32) -> Clusters:
     return Clusters(**f)
 
 
+def full_slot_clusters(batch: EventBatch, k: int = 32, seed: int = 0) -> Clusters:
+    """:func:`edge_slot_clusters` with every slot of every window valid:
+    a slot with no cell of an event (and the last two) gets a seeded
+    centroid anywhere on the sensor and a count of 1. The large metrics
+    path runs a window's valid slots side by side; this fills them all."""
+    f = {n: v.clone() for n, v in edge_slot_clusters(batch, k)._asdict().items()}
+    rng = np.random.default_rng(seed)
+    shape = tuple(f["valid"].shape)
+    free = ~f["valid"]
+    for name, hi in (("centroid_x", 640.0), ("centroid_y", 480.0)):
+        drawn = torch.as_tensor(rng.uniform(0.0, hi, shape), dtype=torch.float32, device=free.device)
+        f[name] = torch.where(free, drawn, f[name])
+    f["count"] = torch.where(free, 1, f["count"])
+    f["valid"] = torch.ones_like(f["valid"])
+    return Clusters(**f)
+
+
 def _pad_window(x, y, t, capacity: int):
     """Host planes ``(x, y, t, valid)`` of one window padded or cut to
     ``capacity``, as the reference's ``batch_from_arrays`` packs them."""
@@ -200,6 +217,20 @@ def large_windows(capacity: int, n_windows: int = 3, seed: int = 0, t_max: int =
         x, y, t, v = _pad_window(x, y, t, capacity)
         out.append((x, y, t, v & (rng.random(capacity) > 0.05)))
     return out
+
+
+def hot_pixel_window(capacity: int = 50_000, n_hot: int = 48_000, seed: int = 4) -> tuple:
+    """One host window of ``capacity`` events, ``n_hot`` of them on pixel
+    (320, 240) and the rest spread over the sensor: a pixel count whose
+    square passes 2^31 (from 46,341 events), so a metric kernel that sums
+    c * c in 32-bit integers wraps."""
+    rng = np.random.default_rng(seed)
+    n_rest = capacity - n_hot
+    x = np.concatenate([np.full(n_hot, 320), rng.integers(0, 640, n_rest)])
+    y = np.concatenate([np.full(n_hot, 240), rng.integers(0, 480, n_rest)])
+    t = rng.integers(0, 100_000, capacity)
+    order = rng.permutation(capacity)
+    return _pad_window(x[order], y[order], t, capacity)
 
 
 def sum_t_window(capacity: int = 1024, seed: int = 3) -> tuple:

@@ -9,7 +9,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <atomic>
+#include "device.cuh"
 
 namespace {
 
@@ -142,43 +142,6 @@ __device__ void memory_bitonic_sort(Key* a, int n) {
       __syncthreads();
     }
   }
-}
-
-// Dynamic shared memory a CTA may take without raising a kernel's limit.
-constexpr size_t kDefaultSmem = 48 * 1024;
-
-// Dynamic shared memory one CTA of Kernel may take on the current device
-// (the opt-in limit less the kernel's static shared memory), with the
-// kernel's own limit raised to it. Asked once per device and kept, so a
-// plan or a launch after the first makes no runtime call but
-// cudaGetDevice. 0 where it cannot be had: launches then stay within
-// kDefaultSmem and larger data go to device scratch.
-template <auto Kernel>
-size_t dynamic_smem_limit() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<long long> known[kMaxDevices];  // limit + 1; 0: not asked yet
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
-  long long v = known[dev].load(std::memory_order_relaxed);
-  if (v == 0) {
-    int optin = 0;
-    cudaFuncAttributes fa{};
-    size_t lim = 0;
-    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) ==
-            cudaSuccess &&
-        cudaFuncGetAttributes(&fa, Kernel) == cudaSuccess &&
-        optin > static_cast<int>(fa.sharedSizeBytes)) {
-      lim = static_cast<size_t>(optin) - fa.sharedSizeBytes;
-      if (cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(lim)) != cudaSuccess) {
-        lim = 0;
-      }
-    }
-    if (lim == 0) cudaGetLastError();  // leave no error for the next launch to report
-    v = static_cast<long long>(lim) + 1;
-    known[dev].store(v, std::memory_order_relaxed);
-  }
-  return static_cast<size_t>(v - 1);
 }
 
 __host__ __device__ __forceinline__ size_t round_up(size_t v, size_t m) {

@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int kWindow = 48;
@@ -245,25 +247,22 @@ __global__ void __launch_bounds__(kWarpThreads, 4) window_entropy_kernel_warps(
   }
 }
 
-// CTAs of each path that the card holds at once, per device (0: not yet asked).
-int resident[2][64];
-
+// CTAs of each path that the card holds at once on the current device.
 int ctas_at_once(bool wide) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  int& n = resident[wide ? 0 : 1][dev];
-  if (n == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (wide) {
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_entropy_kernel, kWideThreads, 0);
-    } else {
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_entropy_kernel_warps,
-                                                    kWarpThreads, 0);
+  const auto per_sm = [](auto kernel, int threads) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) != cudaSuccess) {
+      cudaGetLastError();
     }
-    n = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  return n;
+    return n > 0 ? n : 1;
+  };
+  return static_cast<int>(
+      wide ? per_device([&](int) -> long long {
+               return sm_count() * per_sm(window_entropy_kernel, kWideThreads);
+             }, 0)
+           : per_device([&](int) -> long long {
+               return sm_count() * per_sm(window_entropy_kernel_warps, kWarpThreads);
+             }, 0));
 }
 
 }  // namespace

@@ -8,24 +8,30 @@ the event-space preprocessing around it (``core/metrics.py``'s
 a block's conditioned events and its cluster slots in, the six metrics of
 every slot out.
 
-Bound on the H100: bytes. It reads x, y and valid (9 bytes an event) of
-each window that holds a valid slot, the valid flag of every slot and the
-centroids and count of each valid slot, and writes 24 bytes a slot; the
-float32 work, about 25 operations for each of a valid slot's 2,304
-pixels, stays below that at the main path's 1-2 valid slots per busy
-window. Design: one CTA per window, none per slot; a window with no valid
-slot writes zeros and exits. The CTA loads the window's events once into
-shared memory, sorts the in-sensor ones by (pixel, index) once, reads
-coincidence counts, leaders and the normalizer off the pixel runs (no
-(E, E) pass), then runs its valid slots one after another: patch,
-histogram, Sobel and the six metrics, the patch in shared memory and the
-per-pixel values in registers. At E <= 1024 and K <= 128 (the main path)
-the sort runs in registers; past either the kernel's large path sorts in
-memory, finds each run's end by a binary search and strides over the
-slots, so no E and no K is refused. Past about 8,000 events a window
-(shared memory's 227 KB) the events and keys go to per-window scratch in
-device memory, which the wrapper allocates at the size the library asks
-for. The source note in ``csrc/patch_metrics.cu`` has the steps.
+Two paths, picked at launch from the sizes. The small path (E <= 1024, K
+<= 128, the main path's blocks with 1-2 valid slots a busy window) is
+bound by bytes: of each window that holds a valid slot, the valid flag of
+every event slot and x and y of each valid event, and 24 bytes out a
+slot. One CTA per window; it sorts the
+in-sensor events by (pixel, index) once in registers, reads coincidence
+counts, leaders and the normalizer off the pixel runs (no (E, E) pass),
+then runs its valid slots one after another.
+
+The large path takes any E and any K. On fixed-time windows nearly every
+slot is valid (the scale recording's 100 ms stride windows: 4,096 events,
+31.75 of 32 slots), and counted over every pixel of every slot the stage
+is bound by operations, not bytes; counting only the work the function
+needs (the Sobel near occupied pixels, no sort) it is bound by bytes.
+Its design: a few CTAs a window, 8-32 slots each (by the grid's size), a
+valid slot a warp in its own patch table, so a window's slots run side by
+side; each CTA indexes the window's events by sensor row (a count, a scan
+and a scatter, no sort), so a slot reads only the events of its 48 rows;
+the normalizer comes from counts within each row; the Sobel runs only at
+pixels next to an occupied one, dealt evenly over the lanes, the rest
+entering the sums as one product. Past shared memory (E above 65,535) the
+row index and the events' x go to per-CTA scratch in device memory, which
+the wrapper allocates at the size the library asks for. The source note
+in ``csrc/patch_metrics.cu`` has the steps.
 """
 from __future__ import annotations
 
@@ -49,10 +55,10 @@ def _launcher():
     if not _fns:
         lib = _build.load("patch_metrics")
         fn = lib.patch_metrics_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         q = lib.patch_metrics_scratch_bytes
-        q.argtypes = [ctypes.c_int] * 4
+        q.argtypes = [ctypes.c_int] * 6
         q.restype = ctypes.c_longlong
         _fns.update(launch=fn, scratch=q)
     return _fns["launch"]
@@ -66,6 +72,13 @@ def patch_metrics(batch, clusters, *, width: int, height: int) -> dict[str, torc
     by ``METRIC_NAMES``, each ``(W, K)`` float32, views of one buffer.
     Raises ``TypeError`` for another dtype and ``ValueError`` for another
     layout; takes any E and any K."""
+    return _launch(batch, clusters, width, height, 0)
+
+
+def _launch(batch, clusters, width: int, height: int, group: int) -> dict[str, torch.Tensor]:
+    """:func:`patch_metrics` with the large path's slots a CTA set to
+    ``group`` (1-32; 0 or another value: the library picks 32, 16 or 8 from
+    the grid's size). For tests and tools; the small path ignores it."""
     events = (batch.x, batch.y, batch.valid)
     slots = (clusters.centroid_x, clusters.centroid_y, clusters.count, clusters.valid)
     x = batch.x
@@ -74,8 +87,8 @@ def patch_metrics(batch, clusters, *, width: int, height: int) -> dict[str, torc
     n_win, e = x.shape
     k = clusters.valid.shape[1]
     index = x.get_device()
-    for group, dtypes, shape in ((events, _EVENT_DTYPES, (n_win, e)), (slots, _SLOT_DTYPES, (n_win, k))):
-        for a, dt in zip(group, dtypes):
+    for tensors, dtypes, shape in ((events, _EVENT_DTYPES, (n_win, e)), (slots, _SLOT_DTYPES, (n_win, k))):
+        for a, dt in zip(tensors, dtypes):
             if a.dtype is not dt:
                 raise TypeError(f"patch_metrics takes {dt}, got {a.dtype}")
             if a.shape != shape or a.get_device() != index or index < 0 or not a.is_contiguous():
@@ -85,15 +98,15 @@ def patch_metrics(batch, clusters, *, width: int, height: int) -> dict[str, torc
                 )
     out = torch.empty((len(M.METRIC_NAMES), n_win, k), dtype=torch.float32, device=x.device)
     launch = _launcher()
-    key = (index, e, k, width, height)
+    key = (index, n_win, e, k, width, height, group)
     per = _scratch_bytes.get(key)
     if per is None:  # asked once per device and sizes
         per = _scratch_bytes[key] = _build.launch_on(
-            index, lambda _stream: _fns["scratch"](e, k, width, height))
+            index, lambda _stream: _fns["scratch"](n_win, e, k, width, height, group))
     scratch = (torch.empty(n_win * per, dtype=torch.uint8, device=x.device)
                if per and n_win and k else None)
     err = _build.launch_on(index, lambda stream: launch(
-        *(a.data_ptr() for a in events + slots), n_win, e, k, width, height,
+        *(a.data_ptr() for a in events + slots), n_win, e, k, width, height, group,
         out.data_ptr(), None if scratch is None else scratch.data_ptr(), stream,
     ))
     _build.check(err, "patch_metrics")

@@ -180,8 +180,8 @@ def test_stage_kernels_refuse_what_they_do_not_take(cuda_dev):
 
 
 # E past the small path's 1,024 (one over it, the capacity of the stride
-# windows, and past the 227 KB of shared memory that K3's events and keys
-# fit in); K past its 128; cell 4 puts K2's table past shared memory.
+# windows, and 20,000, about five times that); K past its 128; cell 4
+# puts K2's table past shared memory.
 LARGE_E = (1025, 4096, 20_000)
 LARGE_GRIDS = (GridConfig(), GridConfig(min_events=1, max_clusters=160),
                GridConfig(cell_size=12, min_events=0, max_clusters=160))
@@ -226,12 +226,58 @@ def test_stage_kernels_take_any_size(cuda_dev, e):
             assert torch.equal(a, p), (e, g)
         bound = ref.sum_t_bound(plain[0], ref.abs_t_rows(b.x, b.y, b.t, b.valid, **kw))
         assert bool(((rows[3].double() - plain[3].double()).abs() <= bound).all()), (e, g)
+    _assert_patch_metrics_any_slots(b, e)
+
+
+def _assert_patch_metrics_any_slots(b, e, slots=None):
+    """K3 at K = 32 and 160, with ``edge_slot_clusters`` and with every
+    slot of every window valid (``full_slot_clusters``, the case whose
+    slots the large path runs side by side), or with ``slots(b, k)``: one
+    launch, against the plain version; on the large path the same to the
+    bit at 1, 7 and 32 slots a CTA."""
+    from repro_torch.data.adversarial import full_slot_clusters
+    from repro_torch.kernels import patch_metrics as _pm
+
+    if slots is None:
+        slots = lambda b, k: (edge_slot_clusters(b, k), full_slot_clusters(b, k))  # noqa: E731
     for k in (32, 160):
-        cl = edge_slot_clusters(b, k)
-        ops.reset_launches()
-        got = ops.patch_metrics(b, cl)
-        assert ops.LAUNCHES["patch_metrics"] == 1
-        _assert_metrics_close(got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), (e, k))
+        for cl in slots(b, k):
+            ops.reset_launches()
+            got = ops.patch_metrics(b, cl)
+            assert ops.LAUNCHES["patch_metrics"] == 1
+            _assert_metrics_close(got, ref.patch_metrics_stage_ref(b, cl, width=640, height=480), (e, k))
+            if e > 1024 or k > 128:
+                for group in (1, 7, 32):
+                    other = _pm._launch(b, cl, 640, 480, group)
+                    assert all(torch.equal(other[m], got[m]) for m in got), (e, k, group)
+
+
+@pytest.mark.cuda
+def test_patch_metrics_past_shared_memory(cuda_dev):
+    """K3 at E = 70,000: past 65,535 events its patch tables are 32-bit and
+    the row index and events lie in per-CTA device scratch."""
+    from repro_torch.data.adversarial import large_windows, stacked_batch
+    from repro_torch.kernels import patch_metrics as _pm
+
+    b = stacked_batch(large_windows(70_000, n_windows=2), cuda_dev)
+    _assert_patch_metrics_any_slots(b, 70_000)
+    assert _pm._fns["scratch"](2, 70_000, 32, 640, 480, 0) > 0
+
+
+@pytest.mark.cuda
+def test_patch_metrics_pixel_count_squared_past_int32(cuda_dev):
+    """K3 on a window whose hottest pixel holds 48,000 events: its count
+    squared passes 2^31, and the moments still equal the plain version's."""
+    from repro_torch.data.adversarial import hot_pixel_window, stacked_batch
+
+    b = stacked_batch([hot_pixel_window(50_000, 48_000)], cuda_dev)
+
+    def slots(b, k):
+        cl = ref.cluster_accum_topk_ref(b.x, b.y, b.t, b.valid, GridConfig(min_events=1, max_clusters=k))
+        assert int(cl.count.max()) >= 48_000  # a valid slot holds the hot pixel
+        return (cl,)
+
+    _assert_patch_metrics_any_slots(b, 50_000, slots)
 
 
 @pytest.mark.cuda

@@ -252,6 +252,18 @@ def test_window_entropy_tools_refuse_without_a_card(tool):
     assert "cuda" in out.stderr.lower() and "{" not in out.stdout
 
 
+@pytest.mark.parametrize("tool", ["torch_k3_compare.py"])
+def test_patch_metrics_tools_refuse_without_a_card(tool):
+    """K3's measurement tool times the card only: with no card it exits
+    non-zero before building or measuring anything."""
+    _no_card()
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, str(REPO / "tools" / tool)], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode != 0
+    assert "cuda" in out.stderr.lower() and "{" not in out.stdout
+
+
 def test_chip_smoke_fails_without_a_card():
     _no_card()
     out = subprocess.run(

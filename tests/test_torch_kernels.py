@@ -7,8 +7,9 @@ exactly, the entropies and contrast to rtol = atol = 1e-5
 CUDA kernels' algorithms (the metrics kernel's sort and pixel runs, its
 float32 reduction order; the clustering kernel's prefix top-K) are held
 against the plain versions and the JAX package, and so are models of
-their large paths (past E = 1024 or K = 128: the metrics kernel's runs by
-binary search over keys sorted in memory, the clustering kernel's 64-bit
+their large paths (past E = 1024 or K = 128: the metrics kernel's row
+index and normalizer, the whole of its steps in
+``test_torch_patch_metrics_large.py``; the clustering kernel's 64-bit
 keys). A window whose cell t sums pass 2^24 holds the float32 routes
 (the plain version, the JAX package's scatter and its Pallas kernel) to
 the stated bound of the exact, once-rounded sum the clustering kernel
@@ -422,70 +423,64 @@ def test_cluster_accum_topk_cpu_route_is_rows_then_clusters(cell_size, min_event
 # Past the small path's E <= 1024 / K <= 128, and cell t sums past 2^24.
 # ---------------------------------------------------------------------------
 
-def _k3_events_model_large(x, y, v, width=640, height=480):
-    """The metrics kernel's large path, steps 2-3 per window: the same
-    keys sorted; a run's first event leads and finds the run's end by a
-    binary search for the first key of another pixel, so its c is the
-    run's length; the other events of the run are w events that do not
-    lead. Returns (w, c of the leaders, leader, norm, bin)."""
-    n_win, e = x.shape
-    ebits = max(e - 1, 0).bit_length()
-    mask = (1 << ebits) - 1
+SHORT_ROW = 32  # the large path's kShortRow
+
+
+def _k3_rows(x, y, v, width=640, height=480):
+    """The metrics kernel's large path, step 2 for one window: the w
+    events' x by sensor row (a list of ``height`` arrays), as its count,
+    scan and scatter leave them (within a row in any order; the model
+    keeps the events' order)."""
     w = v & (x >= 0) & (x < width) & (y >= 0) & (y < height)
-    c = np.zeros((n_win, e), np.int64)
-    lead = np.zeros((n_win, e), bool)
-    norm = np.ones(n_win, F32)
-    bins = np.full((n_win, e), -1, np.int64)
-    for r in range(n_win):
-        keys = np.sort(((y[r].astype(np.int64) * width + x[r]) << ebits | np.arange(e))[w[r]])
-        nw = len(keys)
-        for i in range(nw):
-            cur = keys[i] >> ebits
-            if i and keys[i - 1] >> ebits == cur:
-                continue
-            lo, hi = i + 1, nw
-            while lo < hi:
-                mid = (lo + hi) >> 1
-                if keys[mid] >> ebits == cur:
-                    lo = mid + 1
-                else:
-                    hi = mid
-            c[r, keys[i] & mask] = lo - i
-            lead[r, keys[i] & mask] = True
-        norm[r] = max(int(c[r].max(initial=0)), 1)
-        for i in np.flatnonzero(lead[r]):
-            bins[r, i] = min(max(int(F32(c[r, i]) / norm[r] * F32(32)), 0), 31)
-    return w, c, lead, norm, bins
+    order = np.argsort(y[w], kind="stable")
+    xs, ys = x[w][order], y[w][order]
+    ends = np.cumsum(np.bincount(ys, minlength=height))
+    return [xs[s:e] for s, e in zip(np.r_[0, ends[:-1]], ends)]
+
+
+def _k3_rows_norm(rows):
+    """The large path's step 3: max(1, the largest count of one pixel)
+    from the rows, a row of at most 32 events by each event's later
+    repeats, a longer one by counters over x (its two branches)."""
+    cmax = 0
+    for r in rows:
+        if len(r) <= SHORT_ROW:
+            for i in range(len(r)):
+                cmax = max(cmax, 1 + int((r[i + 1:] == r[i]).sum()))
+        elif len(r):
+            cmax = max(cmax, int(np.bincount(r).max()))
+    return F32(max(cmax, 1))
 
 
 @pytest.mark.parametrize("e", [1025, 4096])
 def test_patch_metrics_large_path_algorithm_matches_reference(e):
-    """The large path's runs by binary search, in numpy, give the small
-    path's w, leaders, normalizer and bins, and equal the JAX package's
-    ``event_normalizer`` and the port's (c compared on the leaders, the
-    only events the kernel keeps it for)."""
+    """The large path's row index and normalizer, in numpy: the rows hold
+    exactly the w events, each pixel's count within its row is the c of
+    the small path's model and of the JAX package's ``event_normalizer``
+    (and the port's), and the normalizer equals theirs, with rows past 32
+    events (the warp branch) in the windows."""
     from repro.core import metrics as JM
     from repro_torch.data.adversarial import large_windows
 
     x, y, t, v = _stack(large_windows(e, n_windows=2))
-    w, c, lead, norm, bins = _k3_events_model_large(x, y, v)
-    sw, sc, slead, snorm, sbins = _k3_events_model(x, y, v)
-    np.testing.assert_array_equal(w, sw)
-    np.testing.assert_array_equal(c, np.where(slead, sc, 0))
-    np.testing.assert_array_equal(lead, slead)
-    np.testing.assert_array_equal(norm, snorm)
-    np.testing.assert_array_equal(bins, sbins)
+    sw, sc, slead, snorm, _ = _k3_events_model(x, y, v)
     tc, tl, tw, tn = TM.event_normalizer(_tbatch(x, y, t, v), 640, 480)
-    np.testing.assert_array_equal(tl.numpy(), lead)
-    np.testing.assert_array_equal(np.where(lead, tc.numpy(), 0), c)
-    np.testing.assert_array_equal(tn.numpy(), norm)
     jn = jax.jit(lambda jb: JM.event_normalizer(jb, 640, 480))
     for r in range(x.shape[0]):
+        rows = _k3_rows(x[r], y[r], v[r])
+        assert sum(len(q) for q in rows) == int(sw[r].sum())
+        assert max(len(q) for q in rows) > SHORT_ROW
+        norm = _k3_rows_norm(rows)
         jc, jl, jw, jnorm = jn(_jbatch(x[r], y[r], t[r], v[r]))
-        np.testing.assert_array_equal(np.asarray(jw), w[r])
-        np.testing.assert_array_equal(np.asarray(jl), lead[r])
-        np.testing.assert_array_equal(np.where(lead[r], np.asarray(jc), 0), c[r])
-        assert np.asarray(jnorm) == norm[r]
+        assert norm == snorm[r] == tn[r].item() == np.asarray(jnorm)
+        pix = {(int(yy), int(xx)): 0 for yy, q in enumerate(rows) for xx in q}
+        for yy, q in enumerate(rows):
+            for xx in q:
+                pix[yy, int(xx)] += 1
+        for i in np.flatnonzero(slead[r]):
+            want = pix[int(y[r, i]), int(x[r, i])]
+            assert want == sc[r, i] == tc[r, i].item() == np.asarray(jc)[i], (r, i)
+        assert len(pix) == int(slead[r].sum()) == int(np.asarray(jl).sum())
 
 
 def _assert_centroid_t_within_bound(got_t, want, abs_t, grid, what):
